@@ -1,4 +1,5 @@
-"""Inverse rendering (BASELINE.json config 5, scaled-down CLI demo).
+"""Inverse rendering (the 128^3 / 32-view training workload, scaled-down
+CLI demo).
 
 Optimizes a density+albedo grid from posed renderings of a synthetic target
 volume, ray-sharded over the available device mesh with gradient psum.
@@ -9,10 +10,11 @@ Usage:
 """
 
 import argparse
+import os
 import sys
 import time
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
@@ -64,6 +66,9 @@ def main():
     ap.add_argument("--ckpt", default=None)
     args = ap.parse_args()
 
+    from voxel_tracer_tpu.utils import compile_cache
+
+    compile_cache.enable()
     from voxel_tracer_tpu.models.camera import Camera, rays_for_image
     from voxel_tracer_tpu.trainer import TrainConfig, Trainer
     from voxel_tracer_tpu.utils.framebuffer import write_png

@@ -6,22 +6,26 @@ Usage:
 """
 
 import argparse
+import os
 import sys
 import time
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
 from voxel_tracer_tpu import Renderer, RenderConfig, Scene, VoxelVolume
+from voxel_tracer_tpu.models.assets import asset_path
 from voxel_tracer_tpu.models.skydome import SkyDome
+from voxel_tracer_tpu.utils import compile_cache
 from voxel_tracer_tpu.utils.aov import display
 from voxel_tracer_tpu.utils.framebuffer import write_png
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--vox", default="/root/reference/assets/vox/crate-16.vox")
+    ap.add_argument("--vox", default=None,
+                    help=".vox file (default: the seeded crate asset)")
     ap.add_argument("--out", default="out.png")
     ap.add_argument("--size", default="320x240")
     ap.add_argument("--mode", default="lambert",
@@ -29,18 +33,15 @@ def main():
     ap.add_argument("--aov", default="final")
     ap.add_argument("--cam", default="1.2,1.0,-1.6", help="camera position")
     ap.add_argument("--target", default="0,0,0")
-    ap.add_argument("--fast", action="store_true",
-                    help="kernel-backed path: fused megakernel for "
-                         "flat/lambert (analytic sky instead of the "
-                         "texture sample); MegaIntersector-traversed "
-                         "full Whitted for --mode full")
     args = ap.parse_args()
+    compile_cache.enable()
 
     w, h = (int(v) for v in args.size.split("x"))
     cfg = RenderConfig(width=w, height=h, shading=args.mode)
     renderer = Renderer(cfg)
 
-    vol = VoxelVolume.from_vox(args.vox, pos=(0, 0, 0))
+    vol = VoxelVolume.from_vox(args.vox or asset_path("crate-16.vox"),
+                               pos=(0, 0, 0))
     scene = Scene(volumes=[vol], skydome=SkyDome.procedural())
     sdata = scene.data()
 
@@ -49,31 +50,7 @@ def main():
     camera = renderer.camera(cam_pos, target)
 
     t0 = time.perf_counter()
-    if args.fast and args.mode == "full":
-        from voxel_tracer_tpu.ops.pallas import mega
-        from voxel_tracer_tpu.ops.pallas.whitted import (
-            MegaIntersector, render_whitted_mega)
-        mv = mega.MegaVolume(vol)
-        isect = MegaIntersector(mv, tile_rows=8, shadow_rounds=2)
-        aovs = render_whitted_mega(isect, sdata, camera, w, h, 0,
-                                   config=cfg)
-    elif args.fast and args.mode in ("flat", "lambert"):
-        from voxel_tracer_tpu.ops.pallas import mega
-        mv = mega.MegaVolume(vol)
-        if args.mode == "flat":
-            out = mega.render_mega(mv, camera, w, h)
-            aovs = dict(image=np.asarray(out["image"], np.float32) / 255.0,
-                        depth=out["depth"], steps=out["steps"],
-                        material=out["mat"])
-        else:
-            out = mega.render_lambert_mega(mv, camera, w, h,
-                                           shadow_tile_rows=32)
-            aovs = dict(image=np.asarray(out["image"], np.float32) / 255.0,
-                        depth=out["depth"], steps=out["steps"],
-                        material=out["material"], normal=out["normal"],
-                        albedo=out["albedo"], irradiance=out["irradiance"])
-    else:
-        aovs = renderer.render(sdata, camera)
+    aovs = renderer.render(sdata, camera)
     img = np.asarray(aovs["image"])
     t1 = time.perf_counter()
 

@@ -77,11 +77,11 @@ def test_masked_apply_multi_output_and_jit(rng):
 def test_shade_full_compact_parity_wavefront():
     """compact=True must reproduce the uncompacted wavefront image
     exactly (same per-row math, XLA backend is per-ray independent)."""
-    from tests.test_whitted_mega import _material_scene, W, H
+    from tests.scenes import material_scene, W, H
     from voxel_tracer_tpu.models.camera import Camera, rays_for_image
     from voxel_tracer_tpu.renderer import RenderConfig, render_rays
 
-    vol, scene = _material_scene()
+    vol, scene = material_scene()
     sd = scene.data()
     cam = Camera.create((1.1, 0.9, -1.5), (0.0, 0.3, 0.0), W / H)
     o, d = rays_for_image(cam, W, H)
@@ -96,136 +96,3 @@ def test_shade_full_compact_parity_wavefront():
     np.testing.assert_allclose(np.asarray(out["color"]),
                                np.asarray(ref["color"]),
                                rtol=1e-5, atol=1e-6)
-
-
-def test_whitted_mega_compact_parity_kernel():
-    """Kernel backend with compaction (isect.compact + config.compact)
-    vs the uncompacted kernel render: tile regrouping may flip
-    tile-vote-dependent rays, so parity is budgeted like the main
-    whitted test."""
-    from tests.test_whitted_mega import _material_scene, W, H
-    from voxel_tracer_tpu.models.camera import Camera
-    from voxel_tracer_tpu.ops.pallas import mega
-    from voxel_tracer_tpu.ops.pallas.whitted import (
-        MegaIntersector, render_whitted_mega)
-    from voxel_tracer_tpu.renderer import RenderConfig
-
-    vol, scene = _material_scene()
-    sd = scene.data()
-    cam = Camera.create((1.1, 0.9, -1.5), (0.0, 0.3, 0.0), W / H)
-    mv = mega.MegaVolume(vol)
-    base_cfg = RenderConfig(width=W, height=H, shading="full",
-                            max_bounces=3, glass_reflections=2)
-    ref = render_whitted_mega(
-        MegaIntersector(mv, tile_rows=8, fine_iters=96, shadow_rounds=4,
-                        interpret=True),
-        sd, cam, W, H, jnp.int32(7), config=base_cfg)
-    out = render_whitted_mega(
-        MegaIntersector(mv, tile_rows=8, fine_iters=96, shadow_rounds=4,
-                        compact=True, interpret=True),
-        sd, cam, W, H, jnp.int32(7),
-        config=RenderConfig(width=W, height=H, shading="full",
-                            max_bounces=3, glass_reflections=2,
-                            compact=True, compact_fracs=(1 / 4,)))
-
-    ref_c = np.asarray(ref["color"]).reshape(-1, 3)
-    out_c = np.asarray(out["color"]).reshape(-1, 3)
-    diff = np.abs(ref_c - out_c).max(axis=-1)
-    scale = np.maximum(1.0, np.abs(ref_c).max(axis=-1))
-    rel = diff / scale
-    # pinned: 59 observed — tile regrouping changes each tile's majority
-    # -axis vote, so a different subset of incoherent rays resolves (the
-    # same flip class as test_whitted_mega's wavefront budget), plus
-    # stochastic shadow flips
-    mism = int((rel > 0.05).sum())
-    assert mism <= 80, f"{mism} mismatches of {ref_c.shape[0]}"
-    assert float(rel.mean()) < 0.01, f"mean rel err {rel.mean():.4f}"
-
-
-def test_exact_fallback_resolves_residue():
-    """exact_fallback routes rays the tiled kernel cannot resolve
-    (tile-axis fighters) through the XLA DDA: every ray resolves, and
-    fallback results match the wavefront DDA exactly."""
-    from tests.test_whitted_mega import _material_scene
-    from voxel_tracer_tpu.ops import dda
-    from voxel_tracer_tpu.ops.pallas import mega
-    from voxel_tracer_tpu.ops.pallas.whitted import MegaIntersector
-
-    vol, scene = _material_scene()
-    mv = mega.MegaVolume(vol)
-    rng = np.random.RandomState(5)
-    n = 1024
-    # incoherent hemisphere fan from inside the scene — guaranteed
-    # tile-axis fighters
-    o = np.tile(np.array([0.8, 0.5, 0.8], np.float32), (n, 1))
-    o += rng.rand(n, 3).astype(np.float32) * 0.2
-    d = rng.randn(n, 3).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    o_l, d_l = jnp.asarray(o), jnp.asarray(d)
-
-    base = MegaIntersector(mv, tile_rows=8, fine_iters=96,
-                           resolve_passes=1, interpret=True)
-    res0 = base._trace(o_l, d_l, base.full_tables, fetch=True)
-    unres = ~np.asarray(res0["resolved"])
-    assert unres.sum() > 0, "scene produced no fighters; test is vacuous"
-
-    ex = MegaIntersector(mv, tile_rows=8, fine_iters=96,
-                         resolve_passes=1, exact_fallback=True,
-                         interpret=True)
-    res1 = ex._trace(o_l, d_l, ex.full_tables, fetch=True)
-    assert np.asarray(res1["resolved"]).all()
-
-    ref = dda.intersect_volume_local(ex.grid_dda, ex.brick_occ_j, o_l,
-                                     d_l, ex.vpu)
-    ref_t = np.where(np.asarray(ref["t"]) < 1e29, np.asarray(ref["t"]),
-                     np.inf)
-    got_t = np.where(np.asarray(res1["t"]) < 1e30, np.asarray(res1["t"]),
-                     np.inf)
-    # fallback rows must equal the DDA bit-for-bit (same code path)
-    np.testing.assert_array_equal(got_t[unres], ref_t[unres])
-    m = np.isfinite(got_t[unres])
-    np.testing.assert_array_equal(np.asarray(res1["mat"])[unres][m],
-                                  np.asarray(ref["mat"])[unres][m])
-
-
-def test_exact_fallback_shadow_depth():
-    """Shadow walks deeper than shadow_rounds counted as TRANSMITTED
-    (truncation bias); with exact_fallback they continue on the exact
-    stochastic DDA and match the wavefront's occlusion decisions."""
-    from tests.test_whitted_mega import _material_scene
-    from voxel_tracer_tpu.ops import dda
-    from voxel_tracer_tpu.ops.pallas import mega
-    from voxel_tracer_tpu.ops.pallas.whitted import MegaIntersector
-
-    vol, scene = _material_scene()
-    mv = mega.MegaVolume(vol)
-    rng = np.random.RandomState(9)
-    n = 512
-    # rays aimed through the glass box: multiple glass-wall voxels deep
-    o = np.tile(np.array([0.25, 0.5, 1.6], np.float32), (n, 1))
-    o[:, 0] += rng.rand(n).astype(np.float32) * 0.3
-    d = np.array([0.0, 0.0, -1.0], np.float32) \
-        + rng.randn(n, 3).astype(np.float32) * 0.15
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    o_l, d_l = jnp.asarray(o), jnp.asarray(d)
-    seed = jnp.asarray(rng.randint(0, 2 ** 31, n, dtype=np.int64)
-                       .astype(np.uint32))
-
-    ex = MegaIntersector(mv, tile_rows=8, fine_iters=96, shadow_rounds=1,
-                         exact_fallback=True, interpret=True)
-    got = ex._shadow_trace(o_l, d_l, seed)
-
-    # _shadow_trace takes WORLD rays; the DDA reference runs in the
-    # volume's local frame
-    lo, ld = ex._to_local(o_l, d_l)
-    ref = dda.intersect_volume_local(ex.grid_dda, ex.brick_occ_j, lo,
-                                     ld, ex.vpu, shadow=True,
-                                     shadow_seed=seed)
-    ref_occ = np.asarray(ref["t"]) < 1e29
-    got_occ = np.asarray(got.t) < 1e29
-    agree = (ref_occ == got_occ).mean()
-    assert agree > 0.99, f"occlusion agreement {agree:.3f}"
-    both = ref_occ & got_occ
-    np.testing.assert_allclose(np.asarray(got.t)[both],
-                               np.asarray(ref["t"])[both], rtol=1e-4,
-                               atol=1e-4)

@@ -93,35 +93,3 @@ def test_palette_fit_converges():
             continue
         np.testing.assert_allclose(np.asarray(pal)[m],
                                    np.asarray(pal_true)[m], atol=0.08)
-
-
-def test_palette_grads_mega_kernel():
-    """Kernel-backed surface path (render_lambert_surface_mega): palette
-    gradients exist exactly on hit materials and match the per-bin
-    closed form sum(2/N * irr * (color - target)) on hits."""
-    import numpy as np
-    import jax
-    import jax.numpy as jnp
-    from voxel_tracer_tpu.models.camera import Camera
-    from voxel_tracer_tpu.models.volume import VoxelVolume
-    from voxel_tracer_tpu.ops.pallas import mega
-    from voxel_tracer_tpu.ops.diff_surface import (
-        palette_fit_loss_mega, render_lambert_surface_mega)
-
-    W = H = 64
-    vol = VoxelVolume.noise_filled((16, 16, 16), pos=(0, 0, 0), vpu=10.0)
-    mv = mega.MegaVolume(vol)
-    cam = Camera.create((2.2, 1.5, -2.0), (0.8, 0.8, 0.8), W / H)
-    pal = jnp.full((256, 3), 0.5)
-    tgt = jnp.zeros((W * H, 3))
-
-    kw = dict(tile_rows=8, tile_w=32, fine_unroll=4, interpret=True,
-              track_steps=False)
-    g = jax.grad(lambda p: palette_fit_loss_mega(
-        p, mv, cam, W, H, tgt, **kw))(pal)
-    out = render_lambert_surface_mega(pal, mv, cam, W, H, **kw)
-    g = np.asarray(g)
-    mats = np.unique(np.asarray(out["mat"])[np.asarray(out["hit"])])
-    assert np.abs(g).sum() > 0
-    nz = np.flatnonzero(np.abs(g).sum(axis=1))
-    assert set(nz).issubset(set(mats.tolist()))

@@ -236,9 +236,10 @@ class TestGlassShading:
         assert np.isfinite(np.asarray(out["image"])).all()
 
     def test_glass_box_vox_renders(self):
-        """The reference test asset renders non-black under full shading."""
-        vol = VoxelVolume.from_vox(
-            "/root/reference/assets/vox/testing/glass-box.vox")
+        """The glass test box asset renders non-black under full shading."""
+        from voxel_tracer_tpu.models.assets import asset_path
+
+        vol = VoxelVolume.from_vox(asset_path("testing/glass-box.vox"))
         scene = Scene(volumes=[vol], skydome=SkyDome.procedural(64, 32))
         cfg = RenderConfig(width=32, height=32, shading="full",
                            max_bounces=3, glass_reflections=2)

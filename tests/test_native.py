@@ -1,26 +1,31 @@
-"""Native C/C++ components: fast .vox parser and C++ oracle parity."""
-
-import glob
-import os
+"""Native C/C++ components (built from `native/` at first use): fast .vox
+parser and C++ oracle parity."""
 
 import numpy as np
 import pytest
 
+from voxel_tracer_tpu.models.assets import ASSET_NAMES, asset_path
 from voxel_tracer_tpu.models.vox import parse_vox, _native_module
 from voxel_tracer_tpu.models.volume import VoxelVolume
 from voxel_tracer_tpu.ops import oracle, oracle_native
 
-ASSETS = sorted(glob.glob("/root/reference/assets/vox/*.vox"))[:4]
+
+@pytest.fixture
+def native_parser():
+    if _native_module() is None:
+        pytest.skip("native parser could not be built (no C compiler)")
 
 
-@pytest.mark.skipif(_native_module() is None,
-                    reason="native parser not built (native/build.sh)")
+@pytest.fixture
+def native_oracle():
+    if not oracle_native.available():
+        pytest.skip("liboracle.so could not be built (no C++ compiler)")
+
+
 class TestNativeVoxParser:
-    @pytest.mark.parametrize("path", ASSETS or ["missing"])
-    def test_matches_python_parser(self, path):
-        if not os.path.exists(path):
-            pytest.skip("no reference assets")
-        raw = open(path, "rb").read()
+    @pytest.mark.parametrize("name", ASSET_NAMES)
+    def test_matches_python_parser(self, name, native_parser):
+        raw = open(asset_path(name), "rb").read()
         a = parse_vox(raw, use_native=True)
         b = parse_vox(raw, use_native=False)
         assert len(a) == len(b)
@@ -29,10 +34,8 @@ class TestNativeVoxParser:
             np.testing.assert_array_equal(ma.palette, mb.palette)
 
 
-@pytest.mark.skipif(not oracle_native.available(),
-                    reason="liboracle.so not built (native/build.sh)")
 class TestNativeOracle:
-    def test_matches_python_oracle(self):
+    def test_matches_python_oracle(self, native_oracle):
         vol = VoxelVolume.noise_filled((24, 24, 24))
         rng = np.random.RandomState(11)
         n = 200

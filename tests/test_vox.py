@@ -1,23 +1,17 @@
-"""MagicaVoxel loader tests against the real reference assets."""
-
-import os
+"""MagicaVoxel loader tests on the seeded `.vox` assets
+(models/assets.py writes them as real files at first use)."""
 
 import numpy as np
 import pytest
 
-from voxel_tracer_tpu.models.vox import load_vox, parse_vox, _default_palette
-
-ASSETS = "/root/reference/assets/vox"
-
-
-def _has_assets():
-    return os.path.isdir(ASSETS)
+from voxel_tracer_tpu.models.assets import ASSET_NAMES, asset_path
+from voxel_tracer_tpu.models.vox import (
+    _default_palette, encode_vox, load_vox, parse_vox)
 
 
-@pytest.mark.skipif(not _has_assets(), reason="reference assets not mounted")
 class TestRealAssets:
     def test_crate16(self):
-        m = load_vox(f"{ASSETS}/crate-16.vox")
+        m = load_vox(asset_path("crate-16.vox"))
         assert m.grid.ndim == 3
         assert (m.grid != 0).sum() > 0
         assert m.palette.shape == (256, 4)
@@ -25,16 +19,16 @@ class TestRealAssets:
         assert max(m.grid.shape) <= 64
 
     def test_glass_box(self):
-        m = load_vox(f"{ASSETS}/testing/glass-box.vox")
+        m = load_vox(asset_path("testing/glass-box.vox"))
         ids = np.unique(m.grid)
         assert 0 in ids and len(ids) > 1
 
     def test_enemy_drone(self):
-        m = load_vox(f"{ASSETS}/enemy-drone.vox")
+        m = load_vox(asset_path("enemy-drone.vox"))
         assert (m.grid != 0).sum() > 10
 
     def test_palette_rgba(self):
-        m = load_vox(f"{ASSETS}/crate-16.vox")
+        m = load_vox(asset_path("crate-16.vox"))
         # palette index 0 is transparent/empty
         assert tuple(m.palette[0]) == (0, 0, 0, 0)
         pf = m.palette_f32
@@ -43,7 +37,7 @@ class TestRealAssets:
 
     def test_axis_remap_upright(self):
         """Reference remap puts vox Z (up) on our Y axis (vv.cpp:30)."""
-        m = load_vox(f"{ASSETS}/enemy-drone.vox")
+        m = load_vox(asset_path("enemy-drone.vox"))
         gz, gy, gx = m.grid.shape
         assert (gx, gy, gz) != (0, 0, 0)
 
@@ -80,3 +74,22 @@ def test_default_palette_shape():
     assert pal.shape == (256, 4)
     assert tuple(pal[0]) == (0, 0, 0, 0)
     assert tuple(pal[1]) == (255, 255, 255, 255)
+
+
+@pytest.mark.parametrize("name", ASSET_NAMES)
+def test_encode_parse_roundtrip(name):
+    """`encode_vox` inverts `parse_vox`: grid, axis remap and palette."""
+    from voxel_tracer_tpu.models import assets
+
+    grid = assets._MODELS[name]()
+    pal = assets.procedural_palette()
+    m = parse_vox(encode_vox(grid, pal), use_native=False)[0]
+    np.testing.assert_array_equal(m.grid, grid)
+    np.testing.assert_array_equal(m.palette, pal)
+
+
+def test_glass_box_materials():
+    """The glass box carries the glass (4) and mirror (12) rows."""
+    ids = set(np.unique(load_vox(asset_path("testing/glass-box.vox")).grid))
+    assert {4, 12} <= ids
+

@@ -1,4 +1,5 @@
-"""Launcher: N-process jax.distributed run on localhost -> MULTIPROC.json.
+"""Launcher: N-process jax.distributed run on localhost (CPU-only
+processes) -> chiprun_out/MULTIPROC.json (not committed).
 
 Spawns N worker processes (tools/multiproc_worker.py), each with
 --xla_force_host_platform_device_count virtual CPU devices, sharing one
@@ -101,7 +102,8 @@ def main():
         "grid": compare(args.processes, args.devices, args.steps, "grid"),
     }
     print(json.dumps(result, indent=1))
-    with open(os.path.join(_ROOT, "MULTIPROC.json"), "w") as f:
+    os.makedirs(os.path.join(_ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(_ROOT, "chiprun_out", "MULTIPROC.json"), "w") as f:
         json.dump(result, f, indent=1)
 
 

@@ -2,19 +2,18 @@
 
 Measures the ray-sharded forward trace and the psum-all-reduced train step
 (parallel/sharding.py) at 1, 2, 4, 8 devices and reports efficiency
-percentages vs the 1-device run — the measurement BASELINE.md's
-">= 85% rays/s efficiency at 2 hosts" target is scored with.
+percentages vs the 1-device run.
 
-On real TPU slices this runs as-is on the actual mesh.  Without TPU
-hardware it spawns one subprocess per device count with
+It spawns one CPU-only subprocess per device count with
 `--xla_force_host_platform_device_count=N` (virtual CPU devices on a
 shared host): the numbers then measure SHARDING + COLLECTIVE OVERHEAD
 (partitioned compile, psum, resharding), not hardware scaling — on an
 M-core host, N > M virtual devices time-share cores, so raw efficiency
-percentages are a lower bound.  Results land in SCALING.json.
+percentages are a lower bound.  Results land in
+chiprun_out/SCALING.json (not committed).
 
 Usage:
-  python tools/scaling.py                 # full sweep -> SCALING.json
+  python tools/scaling.py                 # full sweep -> chiprun_out/
   python tools/scaling.py --worker 4      # one measurement (internal)
 """
 import argparse
@@ -207,9 +206,11 @@ def main():
                     "collective_efficiency_pct isolates the psum cost "
                     "(same compute with sync_grads off)"),
            "results": results}
-    with open(os.path.join(_ROOT, "SCALING.json"), "w") as f:
+    out_dir = os.path.join(_ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "SCALING.json"), "w") as f:
         json.dump(doc, f, indent=1)
-    print(json.dumps({"wrote": "SCALING.json"}))
+    print(json.dumps({"wrote": "chiprun_out/SCALING.json"}))
 
 
 if __name__ == "__main__":

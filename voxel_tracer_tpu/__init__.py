@@ -1,4 +1,4 @@
-"""voxel_tracer_tpu — a TPU-native differentiable voxel ray tracer.
+"""voxel_tracer_tpu — a differentiable voxel ray tracer in JAX.
 
 A brand-new JAX / XLA / Pallas framework with the capabilities of the
 `mxcop/voxel-tracer` reference (a C++20 AVX2 CPU voxel tracer): pinhole ray
@@ -7,8 +7,8 @@ through dense voxel grids, MagicaVoxel `.vox` scenes, multi-object scenes
 with rigid transforms, Whitted-style shading (diffuse / sun / ambient /
 sphere area lights, mirror, glass), soft shadows, HDR skydome, blue-noise
 sampling, temporal reprojection, tonemapping and dynamic voxel edits —
-re-designed TPU-first: batched mask-based traversal under `jit`, Pallas
-kernels for the hot march, differentiable per-voxel parameters with a
+re-designed for accelerators: batched mask-based traversal under `jit`, a
+Pallas (Triton) kernel for the hot march on the GPU, differentiable per-voxel parameters with a
 replay-based custom VJP, and scale-out over a `jax.sharding.Mesh`.
 
 This is not a port: the reference informs *what* is built (see SURVEY.md),

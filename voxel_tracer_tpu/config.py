@@ -22,8 +22,6 @@ class EngineConfig:
     """Top-level framework configuration."""
 
     render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
-    use_kernel: bool = True           # coherent Pallas kernel vs XLA wavefront
-    kernel_tile_rows: int = 8
     profiling: bool = False           # deterministic profiling scene (dev/profile.h)
     seed: int = 0
     checkpoint_dir: Optional[str] = None
@@ -45,7 +43,7 @@ def load_config(path: Optional[str] = None, overrides: Optional[dict] = None,
                 env_prefix: str = "VXT_") -> EngineConfig:
     """Config resolution order: defaults < json file < env < overrides.
 
-    Env vars: VXT_WIDTH=1920 VXT_SHADING=full VXT_USE_KERNEL=0 ...
+    Env vars: VXT_WIDTH=1920 VXT_SHADING=full VXT_SEED=3 ...
     """
     cfg = EngineConfig()
     if path and os.path.exists(path):
@@ -84,8 +82,6 @@ def add_config_args(parser: argparse.ArgumentParser):
     parser.add_argument("--size", default=None, help="WxH render size")
     parser.add_argument("--shading", default=None,
                         choices=["flat", "lambert", "full"])
-    parser.add_argument("--no-kernel", action="store_true",
-                        help="use the XLA wavefront instead of the Pallas kernel")
 
 
 def config_from_args(args) -> EngineConfig:
@@ -96,6 +92,4 @@ def config_from_args(args) -> EngineConfig:
         overrides["render"]["height"] = h
     if args.shading:
         overrides["render"]["shading"] = args.shading
-    if getattr(args, "no_kernel", False):
-        overrides["use_kernel"] = False
     return load_config(args.config, overrides)

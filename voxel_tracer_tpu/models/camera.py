@@ -108,7 +108,7 @@ def rays_for_image(cam: Camera, width: int, height: int, jitter=None):
 def pyramid_project(planes, points):
     """Project world points to the pyramid's [0,1]^2 UV (pyramid.cpp:52-66)."""
     p4 = jnp.concatenate([points, jnp.ones_like(points[..., :1])], axis=-1)
-    d = p4 @ planes.T                       # (..., 4): left,right,top,bottom
+    d = m3.mm(p4, planes.T)                    # (..., 4): left,right,top,bottom
     u = d[..., 0] / (d[..., 0] + d[..., 1])
     v = d[..., 2] / (d[..., 2] + d[..., 3])
     return jnp.stack([u, v], axis=-1)

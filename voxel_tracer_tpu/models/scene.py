@@ -1,7 +1,7 @@
 """Scene: a set of traceable voxel volumes + lights + sky.
 
 Analog of the reference Scene (src/graphics/scene.{h,cpp}), re-designed for
-TPU: instead of a per-frame BVH rebuild over `Traceable*` polymorphism
+batched devices: instead of a per-frame BVH rebuild over `Traceable*` polymorphism
 (scene.cpp:40-43), the scene is a pytree of stacked arrays; nearest-hit
 composition across objects is a vectorized slab-test prepass + masked min
 (idiomatic for tens of objects; see ops/composite.py for the top-K candidate

@@ -1,18 +1,18 @@
 """Voxel volume: dense grid + brickmap occupancy + rigid transform.
 
-TPU-native analog of OVoxelVolume (src/graphics/primitives/vv.{h,cpp}): the
+Device-side analog of OVoxelVolume (src/graphics/primitives/vv.{h,cpp}): the
 host-side `VoxelVolume` owns a mutable NumPy grid (dynamic voxel edits =
 `set_voxel`, vv.cpp:377-432) and produces an immutable device pytree
 (`VolumeData`) for the jitted render path.  The brickmap mirrors
 `Brickmap`/`Brick512::voxcnt` (vv.h:23-38) as an 8^3-reduced occupancy-count
-array; on TPU the dense grid stays resident in HBM and the occupancy array
+array; on the device the dense grid stays resident in memory and the occupancy array
 drives coarse empty-space skipping.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import jax.numpy as jnp
 import numpy as np
@@ -151,3 +151,35 @@ class VoxelVolume:
             pivot=jnp.asarray(self.pivot),
             vpu=jnp.float32(self.vpu),
         )
+
+
+def bake_aligned_scene(volumes: Sequence[VoxelVolume]) -> VoxelVolume:
+    """Merge identity-rotation, grid-aligned volumes into one big volume.
+
+    All volumes must share vpu and have positions on the voxel lattice; the
+    merged volume uses volume 0's palette.  This turns the 512-instance
+    profiling scene (src/dev/profile.h:23-36) into a single grid that one
+    traversal covers.
+    """
+    assert volumes, "no volumes"
+    vpu = volumes[0].vpu
+    mins, maxs = [], []
+    for v in volumes:
+        assert np.allclose(v.rot, np.eye(3)), "bake requires axis-aligned"
+        assert v.vpu == vpu, "bake requires uniform vpu"
+        lo = v.pos - v.pivot
+        mins.append(lo)
+        maxs.append(lo + v.size)
+    lo = np.floor(np.min(mins, axis=0) * vpu).astype(np.int64)
+    hi = np.ceil(np.max(maxs, axis=0) * vpu).astype(np.int64)
+    nx, ny, nz = (hi - lo).astype(int)
+    grid = np.zeros((nz, ny, nx), np.uint8)
+    for v in volumes:
+        off = np.round((v.pos - v.pivot) * vpu).astype(np.int64) - lo
+        gz, gy, gx = v.grid.shape
+        region = grid[off[2]:off[2] + gz, off[1]:off[1] + gy,
+                      off[0]:off[0] + gx]
+        np.copyto(region, np.where(v.grid != 0, v.grid, region))
+    merged = VoxelVolume(grid, palette=volumes[0].palette, vpu=vpu)
+    merged.pos = (lo / vpu + merged.pivot).astype(np.float32)
+    return merged

@@ -69,17 +69,21 @@ class VoxModel:
 
 
 def _native_module():
-    """The C fast parser (native/voxparse.c), if built."""
+    """The C fast parser (native/voxparse.c), built at first use."""
     import importlib
     import sys
+    import sysconfig
+
+    from voxel_tracer_tpu.utils.native import NATIVE_DIR, ensure_built
 
     if "_voxnative" in sys.modules:
         return sys.modules["_voxnative"]
-    native_dir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__)))), "native")
-    if native_dir not in sys.path:
-        sys.path.append(native_dir)
+    lib = os.path.join(NATIVE_DIR, "_voxnative"
+                       + sysconfig.get_config_var("EXT_SUFFIX"))
+    if not ensure_built(lib):
+        return None
+    if NATIVE_DIR not in sys.path:
+        sys.path.append(NATIVE_DIR)
     try:
         return importlib.import_module("_voxnative")
     except ImportError:
@@ -155,3 +159,30 @@ def load_vox(path: str, model_id: int = 0) -> VoxModel:
     with open(path, "rb") as f:
         models = parse_vox(f.read())
     return models[model_id]
+
+
+def encode_vox(grid: np.ndarray, palette: np.ndarray | None = None) -> bytes:
+    """Encode one (Z, Y, X) material grid as .vox bytes (`parse_vox` inverse).
+
+    palette: optional (256, 4) uint8 RGBA, index 0 unused (written as the
+    RGBA chunk, whose color i is palette index i + 1).
+    """
+    grid = np.asarray(grid, np.uint8)
+    gz, gy, gx = grid.shape
+    # inverse of the axis remap: grid[vx, vz, sy-1-vy] = vox(vx, vy, vz)
+    sx, sy, sz = gz, gx, gy
+    a, b, c = np.nonzero(grid)
+    xyzi = np.stack([a, sy - 1 - c, b, grid[a, b, c]], axis=1).astype(np.uint8)
+
+    def chunk(cid, content, children=b""):
+        return (cid + struct.pack("<ii", len(content), len(children))
+                + content + children)
+
+    body = chunk(b"SIZE", struct.pack("<iii", sx, sy, sz))
+    body += chunk(b"XYZI", struct.pack("<i", len(xyzi)) + xyzi.tobytes())
+    if palette is not None:
+        raw = np.zeros((256, 4), np.uint8)
+        raw[:255] = np.asarray(palette, np.uint8)[1:]
+        body += chunk(b"RGBA", raw.tobytes())
+    return b"VOX " + struct.pack("<i", 150) + chunk(b"MAIN", b"", body)
+

@@ -1,7 +1,7 @@
 """Live-ray compaction: run a wavefront stage on only its live subset.
 
 The reference's recursive `eval_material` (materials.cpp:15-48) does zero
-work for terminated rays; a TPU wavefront pays full list size at every
+work for terminated rays; a batched wavefront pays full list size at every
 stage unless the live set is gathered into a dense short list first.
 `masked_apply` is that gather/scatter harness:
 
@@ -40,12 +40,9 @@ def bucket_caps(n, fracs=(1 / 16, 1 / 4), multiple=1024):
 def live_indices(mask, cap):
     """Indices of True rows, compacted to ``cap`` slots, padded with n.
 
-    cumsum + scatter-invert: measured fastest of the alternatives on
-    this chip (tools/probe_idx.py: scatter 5.5 ms at 983k vs
-    searchsorted-scan 9.7 ms and the default sort-based searchsorted
-    ~30 ms; a two-level block scheme ties at 5.1 ms).  Requires
-    sum(mask) <= cap; rows past the cap would be silently dropped
-    (callers guarantee fit via buckets)."""
+    cumsum + scatter-invert (no sort).  Requires sum(mask) <= cap; rows
+    past the cap would be silently dropped (callers guarantee fit via
+    buckets)."""
     n = mask.shape[0]
     pos = jnp.cumsum(mask.astype(jnp.int32)) - 1
     slots = jnp.where(mask, pos, cap)          # cap = out of bounds -> drop

@@ -5,7 +5,7 @@ renderer.cpp:226-238) and its kernel helpers (src/graphics/noise/
 gaussian.h:88-112).  The reference runs two box-blur passes over the
 accumulator before tonemapping; here both the box and a true separable
 Gaussian are jittable XLA ops over (H, W, C) images, expressed as
-depthwise convolutions so XLA lowers them onto the MXU/VPU instead of a
+depthwise convolutions so XLA lowers them onto fused device kernels instead of a
 scalar loop.
 """
 
@@ -16,6 +16,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from voxel_tracer_tpu.ops.math3d import mm
 
 
 def _sep_filter(img, kernel_1d):
@@ -89,7 +91,7 @@ def fxaa(img, edge_threshold: float = 1.0 / 8.0,
     """
     img = jnp.asarray(img, jnp.float32)
     luma_w = jnp.asarray([0.299, 0.587, 0.114], jnp.float32)
-    luma = img @ luma_w
+    luma = mm(img, luma_w)
 
     def sh(x, dy, dx):
         # edge-replicated neighbor fetch via roll + boundary overwrite

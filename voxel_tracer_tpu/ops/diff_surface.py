@@ -70,45 +70,3 @@ def palette_fit_loss(palette, scene: SceneData, origins, dirs, target,
     the config-2 backward pass."""
     out = render_lambert_surface(palette, scene, origins, dirs, **kw)
     return jnp.mean((out["color"] - target) ** 2)
-
-
-def render_lambert_surface_mega(palette, mv, camera, width, height,
-                                sun_light=None, ambient=0.2,
-                                interpret=False, **mega_kw):
-    """Kernel-backed variant of `render_lambert_surface`: the discrete
-    hits (material, normal, depth, shadow visibility) come from the fused
-    megakernel lit pipeline (ops/pallas/mega.render_lambert_mega) — two
-    Pallas passes instead of the XLA wavefront — and only the palette
-    gather + shading arithmetic stay in differentiable XLA land.
-
-    mv: mega.MegaVolume.  Returns dict(color (N,3), hit (N,), mat (N,)).
-    """
-    from voxel_tracer_tpu.models.camera import rays_for_image
-    from voxel_tracer_tpu.models.scene import SUN_DIR
-    from voxel_tracer_tpu.ops.pallas import mega as _mega
-
-    out = _mega.render_lambert_mega(mv, camera, width, height,
-                                    sun_light=sun_light, ambient=ambient,
-                                    interpret=interpret, **mega_kw)
-    n = width * height
-    mat = jax.lax.stop_gradient(out["material"].reshape(n))
-    hit = jax.lax.stop_gradient(out["depth"].reshape(n)) < BIG_F32
-    # irradiance already folds incidence * shadow visibility + ambient
-    irr = jax.lax.stop_gradient(out["irradiance"].reshape(n, 3))
-
-    _, dirs = rays_for_image(camera, width, height)
-    sun_n = jnp.asarray(SUN_DIR) / jnp.linalg.norm(jnp.asarray(SUN_DIR))
-    sky = jnp.stack(_mega._analytic_sky(
-        tuple(dirs[:, i] for i in range(3)), tuple(sun_n)), axis=-1)
-
-    albedo = jnp.take(palette, jnp.clip(mat, 0, 255), axis=0)
-    color = jnp.where(hit[:, None], albedo * irr, sky)
-    return {"color": color, "hit": hit, "mat": mat}
-
-
-def palette_fit_loss_mega(palette, mv, camera, width, height, target,
-                          **kw):
-    """MSE palette-fitting loss on the kernel-backed surface render."""
-    out = render_lambert_surface_mega(palette, mv, camera, width, height,
-                                      **kw)
-    return jnp.mean((out["color"] - target) ** 2)

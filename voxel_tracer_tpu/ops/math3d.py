@@ -1,6 +1,6 @@
 """Small 3D math library (vectors, quaternions, rigid transforms).
 
-TPU-native analog of the reference template math layer
+Batched analog of the reference template math layer
 (`template/tmpl8math.h`: `float3`, `mat4` at :641, `quat` at :888-1030,
 `TransformPosition/Vector` at :1118-1121).  Everything here is functional and
 works on batched `jnp` arrays with a trailing axis of size 3; rigid
@@ -11,10 +11,18 @@ layouts simple.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
 BIG_F32 = 1e30  # reference: template/types.h:19
+
+
+def mm(a, b):
+    """float32 matmul at full precision: on a GPU a plain `@` may run in
+    TF32 (about three decimal digits), too coarse for hit points, normals
+    and pixel indices."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def dot(a, b):
@@ -106,7 +114,7 @@ def quat_to_mat3(q):
 
 def quat_rotate(q, v):
     """Rotate vector(s) ``v`` by quaternion ``q``."""
-    return (quat_to_mat3(q) @ v[..., None])[..., 0]
+    return mm(quat_to_mat3(q), v[..., None])[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -116,22 +124,22 @@ def quat_rotate(q, v):
 
 def rigid_forward(rot3, pos, pivot, p_local):
     """local -> world points."""
-    return (rot3 @ (p_local - pivot)[..., None])[..., 0] + pos
+    return mm(rot3, (p_local - pivot)[..., None])[..., 0] + pos
 
 
 def rigid_inverse_point(rot3, pos, pivot, p_world):
     """world -> local points (rot3 orthonormal, so inverse = transpose)."""
-    return (jnp.swapaxes(rot3, -1, -2) @ (p_world - pos)[..., None])[..., 0] + pivot
+    return mm(jnp.swapaxes(rot3, -1, -2), (p_world - pos)[..., None])[..., 0] + pivot
 
 
 def rigid_forward_vec(rot3, v_local):
     """local -> world directions."""
-    return (rot3 @ v_local[..., None])[..., 0]
+    return mm(rot3, v_local[..., None])[..., 0]
 
 
 def rigid_inverse_vec(rot3, v_world):
     """world -> local directions."""
-    return (jnp.swapaxes(rot3, -1, -2) @ v_world[..., None])[..., 0]
+    return mm(jnp.swapaxes(rot3, -1, -2), v_world[..., None])[..., 0]
 
 
 # ---------------------------------------------------------------------------

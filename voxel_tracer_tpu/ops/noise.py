@@ -6,7 +6,7 @@ blue.cpp:5-17) and decorrelates frames with additive R2 irrational
 sequences (sampler.h:22-36, frame wrapped at 120, renderer.cpp:161-162).
 
 The real CC0 blue-noise PNG assets are used when found on the asset search
-path (`VOX_ASSETS_DIR` env var, or the reference checkout's assets/noise);
+path (`VOX_ASSETS_DIR` env var, or `assets/noise` in the checkout);
 otherwise a deterministic generated blue-noise-ish texture stands in, with
 identical R2 frame-offset semantics either way.
 """
@@ -22,7 +22,6 @@ import numpy as np
 _ASSET_SEARCH = (
     os.environ.get("VOX_ASSETS_DIR", ""),
     os.path.join(os.path.dirname(__file__), "..", "..", "assets", "noise"),
-    "/root/reference/assets/noise",
 )
 _BLUE_FILES = {2: "LDR_RG01.png", 3: "LDR_RGB1.png"}
 

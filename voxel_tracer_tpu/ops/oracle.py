@@ -19,7 +19,7 @@ holds by construction):
   matching (obb.cpp:108-126) — robust at corners, identical elsewhere.
 
 Everything here is deliberately slow scalar code; it exists only to verify
-the TPU path on small scenes.
+the device path (XLA wavefront and traversal kernel) on small scenes.
 """
 
 from __future__ import annotations

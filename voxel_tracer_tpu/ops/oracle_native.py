@@ -1,8 +1,8 @@
 """ctypes bindings for the C++ CPU oracle (native/oracle.cpp).
 
 Same traversal semantics as ops/oracle.py but ~100x faster — used to make
-large parity sweeps cheap.  Falls back transparently when the shared
-library is not built (`native/build.sh`).
+large parity sweeps cheap.  The shared library is built from source at
+first use (`utils/native.py`); `available()` is False without a compiler.
 """
 
 from __future__ import annotations
@@ -20,7 +20,9 @@ _lib = None
 
 def available() -> bool:
     global _lib
-    if _lib is None and os.path.exists(_LIB_PATH):
+    from voxel_tracer_tpu.utils.native import ensure_built
+
+    if _lib is None and ensure_built(_LIB_PATH):
         _lib = ctypes.CDLL(_LIB_PATH)
         _lib.oracle_trace.argtypes = [
             ctypes.POINTER(ctypes.c_uint8),    # vox

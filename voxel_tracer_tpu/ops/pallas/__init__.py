@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the hot traversal paths."""
+"""Pallas kernels (Triton route) for the hot traversal path."""

@@ -1,6 +1,6 @@
 """Analytic traceable primitives: spheres and capsules.
 
-TPU-native analogs of the reference's non-voxel traceables
+Batched analogs of the reference's non-voxel traceables
 (src/graphics/primitives/basic/sphere.{h,cpp}, .../capsule.{h,cpp}):
 batched quadratic-solve intersectors over stacked primitive arrays,
 min-combined with the voxel-volume hits in ops/composite.py.  The
@@ -17,7 +17,7 @@ from typing import NamedTuple
 import jax.numpy as jnp
 import numpy as np
 
-from voxel_tracer_tpu.ops.math3d import BIG_F32
+from voxel_tracer_tpu.ops.math3d import BIG_F32, mm
 
 LASER_MAT = 0xFF                       # materials.cpp:30
 LASER_ALBEDO = (50.0, 0.0, 0.0)        # capsule.cpp:68 (emissive red)
@@ -96,8 +96,8 @@ def intersect_capsules(prims: PrimsData, origins, dirs):
         ba = pb - pa
         oa = origins - pa
         baba = jnp.sum(ba * ba)
-        bard = dirs @ ba
-        baoa = oa @ ba
+        bard = mm(dirs, ba)
+        baoa = mm(oa, ba)
         rdoa = _dot(dirs, oa)
         oaoa = _dot(oa, oa)
         a = baba - bard * bard
@@ -119,7 +119,7 @@ def intersect_capsules(prims: PrimsData, origins, dirs):
                       jnp.where(cap_ok, t_cap, BIG_F32))
         better = t < t_best
         p = origins + dirs * t[:, None]
-        h01 = jnp.clip((p - pa) @ ba / baba, 0.0, 1.0)
+        h01 = jnp.clip(mm(p - pa, ba) / baba, 0.0, 1.0)
         nrm = (p - pa - h01[:, None] * ba) / r
         t_best = jnp.where(better, t, t_best)
         mat = jnp.where(better, prims.cap_mat[i], mat)

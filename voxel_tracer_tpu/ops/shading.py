@@ -1,7 +1,7 @@
 """Shading: lights, shadows and material evaluation (wavefront style).
 
 Analog of src/graphics/lighting/materials.{h,cpp} and sphere-light.cpp,
-re-structured for TPU: the reference's recursive Whitted evaluation
+re-structured for batched devices: the reference's recursive Whitted evaluation
 (materials.cpp:15-48, <= 8 bounces) becomes a bounded wavefront loop with
 masked per-ray state — every bounce intersects the whole wavefront once and
 updates throughput/irradiance with `where` selects.
@@ -29,7 +29,7 @@ def hit_point(origins, dirs, t, normal):
 
 
 def sun_light(scene: SceneData, p, n, jitter3=None, max_candidates=4,
-              shadow_seed=None, isect=composite):
+              shadow_seed=None):
     """Sun contribution with shadow ray (materials.cpp:226-244).  With
     ``shadow_seed`` the shadow ray uses stochastic glass/mirror
     pass-through (vv.cpp:314-327)."""
@@ -41,7 +41,7 @@ def sun_light(scene: SceneData, p, n, jitter3=None, max_candidates=4,
         sun_dir = jnp.broadcast_to(sun_dir, p.shape)
     incidence = dot(n, sun_dir)
     lit = incidence > 0.0
-    occluded, shadow_hit = isect.is_occluded(
+    occluded, shadow_hit = composite.is_occluded(
         scene, p, sun_dir, BIG_F32, max_candidates, shadow_seed=shadow_seed)
     vis = lit & ~occluded
     return jnp.where(vis[:, None], scene.sun_light * incidence[:, None], 0.0)
@@ -71,12 +71,13 @@ def cos_diffuse_reflect(n, r1, r2):
 
 
 def ambient_light(scene: SceneData, p, n, r2pair, max_candidates=4,
-                  shadow_seed=None, isect=composite):
+                  shadow_seed=None):
     """Ambient sky term: cosine-weighted ray, occlusion within 1 unit,
     sky sample / pdf, clamped (materials.cpp:249-269)."""
     amb_dir = cos_diffuse_reflect(n, r2pair[..., 0], r2pair[..., 1])
-    occluded, _ = isect.is_occluded(scene, p, amb_dir, 1.0, max_candidates,
-                                    shadow_seed=shadow_seed)
+    occluded, _ = composite.is_occluded(scene, p, amb_dir, 1.0,
+                                        max_candidates,
+                                        shadow_seed=shadow_seed)
     pdf = jnp.maximum(dot(amb_dir, n) * INVPI, 1e-6)
     sky = sample_sky(scene.sky, amb_dir) * 0.25
     contrib = clamp_color(sky / pdf[:, None], 8.0)
@@ -84,7 +85,7 @@ def ambient_light(scene: SceneData, p, n, r2pair, max_candidates=4,
 
 
 def sphere_lights(scene: SceneData, p, n, sample3, max_candidates=4,
-                  shadow_seed=None, isect=composite, live=None):
+                  shadow_seed=None, live=None):
     """Monte-Carlo spherical area lights (sphere-light.cpp:8-37).
 
     ``live`` (optional bool mask) parks dead rows' shadow rays: the
@@ -112,7 +113,7 @@ def sphere_lights(scene: SceneData, p, n, sample3, max_candidates=4,
             so = jnp.where(live[:, None], so, 1e6)
             sdd = jnp.where(live[:, None], sdd,
                             jnp.asarray([0.0, 0.0, 1.0], jnp.float32))
-        occluded, _ = isect.is_occluded(
+        occluded, _ = composite.is_occluded(
             scene, so, sdd,
             dist - 0.01, max_candidates, shadow_seed=shadow_seed)
         pdf = FOURPI * diameter
@@ -124,29 +125,27 @@ def sphere_lights(scene: SceneData, p, n, sample3, max_candidates=4,
 
 
 def diffuse_irradiance(scene, p, n, noise3, noise2, config, shadow_seed=None,
-                       isect=composite, live=None):
+                       live=None):
     """Sphere lights + sun + ambient (materials.cpp:194-221)."""
     irr = jnp.zeros_like(p)
     salt = None if shadow_seed is None else shadow_seed
     if scene.lights.origin.shape[0] > 0:
         irr = irr + sphere_lights(scene, p, n, noise3, config.max_candidates,
-                                  shadow_seed=salt, isect=isect, live=live)
+                                  shadow_seed=salt, live=live)
     irr = irr + sun_light(scene, p, n, noise3, config.max_candidates,
                           shadow_seed=None if salt is None
-                          else salt ^ jnp.uint32(0xA511E9B3), isect=isect)
+                          else salt ^ jnp.uint32(0xA511E9B3))
     irr = irr + ambient_light(scene, p, n, noise2, config.max_candidates,
                               shadow_seed=None if salt is None
-                              else salt ^ jnp.uint32(0x63D83595), isect=isect)
+                              else salt ^ jnp.uint32(0x63D83595))
     return irr
 
 
-def lambert_irradiance(scene: SceneData, origins, dirs, hit, config,
-                       isect=composite):
+def lambert_irradiance(scene: SceneData, origins, dirs, hit, config):
     """Deterministic Lambertian shading: sun + shadow ray + flat ambient.
     (config-2 benchmark shading; a simplification of diffuse_light)."""
     p = hit_point(origins, dirs, hit.t, hit.normal)
-    sun = sun_light(scene, p, hit.normal, None, config.max_candidates,
-                    isect=isect)
+    sun = sun_light(scene, p, hit.normal, None, config.max_candidates)
     return sun + config.ambient
 
 
@@ -181,8 +180,7 @@ def material_row(mat):
     return jnp.floor((mat.astype(jnp.float32) - 1.0) / 8.0).astype(jnp.int32)
 
 
-def eval_glass_wavefront(scene, cur_o, cur_d, cur_hit, is_glass, config,
-                         isect=composite):
+def eval_glass_wavefront(scene, cur_o, cur_d, cur_hit, is_glass, config):
     """Glass evaluation: bounded internal-reflection loop with Beer
     absorption and Fresnel splits (materials.cpp:119-189 semantics).
 
@@ -224,7 +222,7 @@ def eval_glass_wavefront(scene, cur_o, cur_d, cur_hit, is_glass, config,
     irr_acc = jnp.zeros((n, 3), jnp.float32)
 
     for i in range(config.glass_reflections):
-        i_hit = isect.march_interior(
+        i_hit = composite.march_interior(
             scene, cur_hit.obj, i_o, i_d, g_medium, config.max_steps)
         exit_p = i_o + i_d * i_hit.t[:, None]
         absorb_t = absorb_t + jnp.where(g_live, i_hit.t, 0.0)
@@ -244,7 +242,7 @@ def eval_glass_wavefront(scene, cur_o, cur_d, cur_hit, is_glass, config,
 
         if i > 0:
             later = g_live & do_refract & ~first
-            s_hit = isect.intersect_scene(
+            s_hit = composite.intersect_scene(
                 scene, scan_o, scan_d, config.max_candidates,
                 config.max_steps, ignore=g_medium)
             s_miss = s_hit.t >= BIG_F32
@@ -272,8 +270,7 @@ def eval_glass_wavefront(scene, cur_o, cur_d, cur_hit, is_glass, config,
     return cont_o, cont_d, cont_w, emitted, alb_acc, irr_acc
 
 
-def shade_full(scene: SceneData, origins, dirs, hit, frame, config,
-               isect=composite):
+def shade_full(scene: SceneData, origins, dirs, hit, frame, config):
     """Full Whitted-style wavefront shading (materials.cpp:15-48 analog).
 
     The recursive mirror/glass evaluation is restructured as a bounded loop:
@@ -294,8 +291,8 @@ def shade_full(scene: SceneData, origins, dirs, hit, frame, config,
     survive), then each heavy stage inside — diffuse light queries, the
     glass sub-loop, the continuation trace — re-compacts to its own
     masked subset at the already-small size, where index construction
-    is nearly free (the single full-size compaction is the only ~5 ms
-    harness cost; see tools/probe_idx.py).  Per-row math is unchanged —
+    is nearly free (the single full-size compaction is the only full-size
+    index construction).  Per-row math is unchanged —
     noise/seed streams key on each ray's ORIGINAL index — so results
     are bit-equal on per-ray-independent backends.
     """
@@ -304,7 +301,7 @@ def shade_full(scene: SceneData, origins, dirs, hit, frame, config,
     full_idx = jnp.arange(n, dtype=jnp.int32)
     if not use_compact:
         return _shade_full_body(scene, origins, dirs, hit, frame, config,
-                                isect, full_idx)
+                                full_idx)
 
     from voxel_tracer_tpu.ops.compact import bucket_caps, masked_apply
 
@@ -320,7 +317,7 @@ def shade_full(scene: SceneData, origins, dirs, hit, frame, config,
             t=jnp.where(lv, t_g, BIG_F32), mat=mat_g, normal=nrm_g,
             albedo=alb_g, steps=jnp.zeros_like(mat_g), obj=obj_g)
         return _shade_full_body(scene, o_p, d_p, hit_g, frame, config,
-                                isect, idx)
+                                idx)
 
     return masked_apply(
         mask0, fn,
@@ -329,8 +326,7 @@ def shade_full(scene: SceneData, origins, dirs, hit, frame, config,
         caps)
 
 
-def _shade_full_body(scene, origins, dirs, hit, frame, config, isect,
-                     ray_idx):
+def _shade_full_body(scene, origins, dirs, hit, frame, config, ray_idx):
     """shade_full's bounce loop at any wavefront size; ``ray_idx`` maps
     each row to its ORIGINAL ray index (n-sentinel on padding rows) so
     noise/seed streams are invariant under compaction."""
@@ -389,7 +385,7 @@ def _shade_full_body(scene, origins, dirs, hit, frame, config, isect,
                 nrm_p = jnp.where(lv[:, None], nrm_g, unit_z)
                 return diffuse_irradiance(
                     scene, p_p, nrm_p, noise3_at(gi), noise2_at(gi),
-                    config, shadow_seed=seed_at(gi, bounce), isect=isect,
+                    config, shadow_seed=seed_at(gi, bounce),
                     live=lv)
 
             irr = masked_apply(
@@ -398,8 +394,7 @@ def _shade_full_body(scene, origins, dirs, hit, frame, config, isect,
         else:
             irr = diffuse_irradiance(scene, p, cur_hit.normal, noise3,
                                      noise2, config,
-                                     shadow_seed=seed_at(ray_idx, bounce),
-                                     isect=isect)
+                                     shadow_seed=seed_at(ray_idx, bounce))
         albedo_out = albedo_out + jnp.where(
             is_diffuse[:, None], thr_a * cur_hit.albedo, 0.0)
         irr_out = irr_out + jnp.where(is_diffuse[:, None], thr_i * irr, 0.0)
@@ -428,7 +423,7 @@ def _shade_full_body(scene, origins, dirs, hit, frame, config, isect,
                     t=t_g, mat=mat_g, normal=nrm_g, albedo=alb_g,
                     steps=jnp.zeros_like(mat_g), obj=obj_g)
                 return eval_glass_wavefront(scene, o_p, d_p, ghit, lv,
-                                            config, isect=isect)
+                                            config)
 
             if not use_compact:
                 return run(g_mask, None, o, d, h_t, h_normal, h_mat,
@@ -471,12 +466,11 @@ def _shade_full_body(scene, origins, dirs, hit, frame, config, isect,
         cur_o, cur_d = next_o, next_d
         if use_compact:
             # the continuation's sky term rides inside the compacted fn
-            # too (full-size procedural-sky sampling measures ~9 ms at
-            # 1M rays, tools/probe_micro.py)
+            # too, so only live rays sample the sky
             def _cont_fn(lv, _idx, o_g, d_g, ign_g, ta_g, ti_g):
                 o_p = jnp.where(lv[:, None], o_g, 1e6)
                 d_p = jnp.where(lv[:, None], d_g, unit_z)
-                h = isect.intersect_scene(
+                h = composite.intersect_scene(
                     scene, o_p, d_p, config.max_candidates,
                     config.max_steps, ignore=ign_g)
                 sky_g = sample_sky(scene.sky, d_p)
@@ -503,7 +497,7 @@ def _shade_full_body(scene, origins, dirs, hit, frame, config, isect,
             irr_out = irr_out + sky_irr
             live = live & (cur_hit.t < BIG_F32)
         else:
-            cur_hit = isect.intersect_scene(
+            cur_hit = composite.intersect_scene(
                 scene, cur_o, cur_d, config.max_candidates,
                 config.max_steps, ignore=ign)
             sky = sample_sky(scene.sky, cur_d)

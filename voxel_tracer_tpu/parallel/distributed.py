@@ -1,8 +1,8 @@
-"""Multi-host bootstrap (DCN) — `jax.distributed` wrapper.
+"""Multi-host bootstrap — `jax.distributed` wrapper.
 
-The reference is single-process (SURVEY.md §2.4: no NCCL/MPI/sockets); the
-TPU framework initializes multi-host process groups over DCN and then runs
-all collectives over ICI via the mesh.  On a single host this is a no-op.
+The reference is single-process (SURVEY.md §2.4: no NCCL/MPI/sockets); this
+framework initializes multi-host process groups and then runs all
+collectives (NCCL on GPUs) via the mesh.  On a single host this is a no-op.
 """
 
 from __future__ import annotations
@@ -16,8 +16,8 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
                process_id: int | None = None):
     """Initialize multi-host JAX if the environment asks for it.
 
-    Priority: explicit args > JAX_COORDINATOR_ADDRESS env > TPU-pod
-    auto-detect (args all None on a pod slice) > single-process no-op.
+    Priority: explicit args > JAX_COORDINATOR_ADDRESS env > cluster
+    auto-detect (args all None) > single-process no-op.
     """
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if num_processes is None and "JAX_NUM_PROCESSES" in os.environ:

@@ -3,7 +3,7 @@
 Forward rendering is embarrassingly parallel over rays: each chip traces its
 ray shard against a replicated scene — zero collectives in the hot loop.
 Training all-reduces voxel-parameter gradients with `psum` over the mesh
-(ICI), the analog of the reference's missing gradient path (SURVEY.md §2.4).
+(NVLink between GPUs), the analog of the reference's missing gradient path (SURVEY.md §2.4).
 """
 
 from __future__ import annotations
@@ -109,7 +109,7 @@ def make_train_step(mesh: Mesh, optimizer, vpu: float, max_steps: int = 192,
     """Sharded inverse-rendering train step (BASELINE config 5).
 
     params = {"sigma": (Z,Y,X), "albedo": (Z,Y,X,3)} — replicated.
-    Rays + target pixels sharded over the mesh; grads psum'd over ICI.
+    Rays + target pixels sharded over the mesh; grads all-reduced over the mesh.
     Returns step(params, opt_state, o_l, d_l, target) -> (params, opt_state, loss).
 
     sync_grads=False skips the gradient/loss pmean: training would
@@ -173,7 +173,7 @@ def make_train_step(mesh: Mesh, optimizer, vpu: float, max_steps: int = 192,
         loss, grads = jax.value_and_grad(local_loss)(params, o_l, d_l, target)
         if sync_grads:
             if overlap_slabs == 1:
-                # gradient all-reduce over ICI (mean over ray shards)
+                # gradient all-reduce over the mesh (mean over ray shards)
                 grads = jax.lax.pmean(grads, RAYS)
             # overlap_slabs > 1: grads were pmean'd slab-by-slab inside
             # the backward pass (see _grad_pmean above)

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 from voxel_tracer_tpu.models.camera import Camera, rays_for_image
 from voxel_tracer_tpu.models.scene import SceneData
 from voxel_tracer_tpu.models.skydome import sample_sky
-from voxel_tracer_tpu.ops import composite, tonemap
+from voxel_tracer_tpu.ops import composite, dda, tonemap
 from voxel_tracer_tpu.ops.math3d import BIG_F32
 
 
@@ -56,17 +56,20 @@ class Renderer:
     accumulator + previous-frame view pyramid across `render` calls (the
     ping-pong accu/prev_frame buffers and `camera.prev_pyramid` of the
     reference, renderer.cpp:240-244, camera.cpp:3-16) and blends 95%
-    history with depth rejection (renderer.cpp:273-329)."""
+    history with depth rejection (renderer.cpp:273-329).
+
+    The traversal implementation (`ops.dda.default_impl`) is fixed when the
+    renderer is constructed, so a renderer made inside a
+    ``dda.traversal(...)`` block keeps that choice for every frame."""
 
     def __init__(self, config: RenderConfig = RenderConfig()):
         self.config = config
         self.frame = 0
+        self.impl = dda.default_impl()
         self._accu = None          # (H, W, 4) irradiance + depth history
         self._prev_planes = None   # (4, 4) previous-frame pyramid planes
         self._render = jax.jit(
-            functools.partial(_render_impl, config=config),
-            static_argnames=(),
-        )
+            functools.partial(_render_impl, config=config, impl=self.impl))
 
     def camera(self, pos, target) -> Camera:
         return Camera.create(pos, target, self.config.aspect)
@@ -103,33 +106,26 @@ class Renderer:
 
 
 def _render_impl(scene: SceneData, camera: Camera, frame, prev_accu=None,
-                 prev_planes=None, depth_delta=0.0, *, config: RenderConfig):
+                 prev_planes=None, depth_delta=0.0, *, config: RenderConfig,
+                 impl: str | None = None):
     w, h = config.width, config.height
-    origins, dirs = rays_for_image(camera, w, h)
-    return render_rays(scene, origins, dirs, frame, config=config,
-                       prev_accu=prev_accu, prev_planes=prev_planes,
-                       depth_delta=depth_delta)
+    with dda.traversal(impl or dda.default_impl()):
+        origins, dirs = rays_for_image(camera, w, h)
+        return render_rays(scene, origins, dirs, frame, config=config,
+                           prev_accu=prev_accu, prev_planes=prev_planes,
+                           depth_delta=depth_delta)
 
 
 def render_rays(scene: SceneData, origins, dirs, frame, *,
                 config: RenderConfig, prev_accu=None, prev_planes=None,
-                depth_delta=0.0, isect=composite, primary_hit=None):
+                depth_delta=0.0):
     """Render a pre-generated ray wavefront (ray-gen split out so callers —
     e.g. parallel/sharding.py — can place sharding constraints on the rays).
-
-    ``isect`` swaps the traversal backend: any module/object with
-    composite-compatible `intersect_scene` / `march_interior` /
-    `is_occluded` (e.g. `ops.pallas.whitted.MegaIntersector` for the
-    kernel-backed fast path).  ``primary_hit`` supplies a precomputed
-    primary HitResult (e.g. from the fused camera megakernel) so the
-    wavefront intersect is skipped."""
+    """
     w, h = config.width, config.height
 
-    if primary_hit is None:
-        hit = isect.intersect_scene(
-            scene, origins, dirs, config.max_candidates, config.max_steps)
-    else:
-        hit = primary_hit
+    hit = composite.intersect_scene(
+        scene, origins, dirs, config.max_candidates, config.max_steps)
     missed = hit.t >= BIG_F32
 
     sky = sample_sky(scene.sky, dirs)
@@ -139,12 +135,11 @@ def render_rays(scene: SceneData, origins, dirs, frame, *,
         irradiance = jnp.ones_like(albedo)
     elif config.shading == "lambert":
         from voxel_tracer_tpu.ops.shading import lambert_irradiance
-        irradiance = lambert_irradiance(scene, origins, dirs, hit, config,
-                                        isect=isect)
+        irradiance = lambert_irradiance(scene, origins, dirs, hit, config)
     else:
         from voxel_tracer_tpu.ops.shading import shade_full
         albedo, irradiance = shade_full(
-            scene, origins, dirs, hit, frame, config, isect=isect)
+            scene, origins, dirs, hit, frame, config)
         albedo = jnp.where(missed[:, None], sky, albedo)
 
     irradiance = jnp.where(missed[:, None], 1.0, jnp.maximum(irradiance, 0.0))

@@ -1,10 +1,9 @@
 """Inverse rendering: optimize a density/albedo grid from posed images.
 
-BASELINE.json config 5: "inverse rendering: optimize 128^3 density+albedo
-grid from 32 posed target images (full backward path under jit + multi-host
-sharding)".  The training step is ray-sharded over the device mesh with
-gradient psum over ICI (parallel/sharding.py); checkpoint/resume via
-utils/checkpoint.py.
+Optimizes a 128^3-class density+albedo grid from posed target images (full
+backward path under jit).  The training step is ray-sharded over the device
+mesh with a gradient all-reduce (parallel/sharding.py); checkpoint/resume
+via utils/checkpoint.py.
 """
 
 from __future__ import annotations
@@ -36,13 +35,6 @@ class TrainConfig:
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 100
     metrics_path: Optional[str] = None     # JSONL metrics stream
-    # 'xla': mesh-sharded wavefront march (multi-chip path).
-    # 'pallas': single-chip fused Pallas integrate kernels
-    # (ops/pallas/diffint.py) — batches must be tile-coherent, so fit()
-    # samples contiguous 1024-ray tiles; grids beyond the VMEM budget
-    # (~64^3 with albedo) automatically use the z-slab sequencer.
-    backend: str = "xla"
-    n_slabs: int = 0                       # 0 = auto (pallas backend)
 
 
 def init_params(cfg: TrainConfig):
@@ -53,14 +45,11 @@ def init_params(cfg: TrainConfig):
     }
 
 
-def make_dataset(views, width: int, height: int, vpu: float, grid_size,
-                 tile_order: bool = False):
+def make_dataset(views, width: int, height: int, vpu: float, grid_size):
     """Posed images -> flat arrays of (local-space origins, dirs, pixels).
 
     views: list of (Camera, image (H,W,3)).  Rays are pre-transformed into
     the grid's local frame (identity rotation, grid centered at origin).
-    tile_order: reorder each view into 32x32-pixel tile-major order (the
-    coherent layout the Pallas backend's batch sampler expects).
     """
     gz, gy, gx = grid_size
     pivot = np.array([gx, gy, gz], np.float32) / (2.0 * vpu)
@@ -70,14 +59,6 @@ def make_dataset(views, width: int, height: int, vpu: float, grid_size,
         o = np.asarray(o) + pivot             # world->local: translate only
         d = np.asarray(d)
         c = np.asarray(img).reshape(-1, 3)
-        if tile_order:
-            from voxel_tracer_tpu.ops.pallas import diffint
-            o = np.asarray(diffint.tile_raster(jnp.asarray(o), height,
-                                               width))
-            d = np.asarray(diffint.tile_raster(jnp.asarray(d), height,
-                                               width))
-            c = np.asarray(diffint.tile_raster(jnp.asarray(c), height,
-                                               width))
         all_o.append(o)
         all_d.append(d)
         all_c.append(c)
@@ -90,11 +71,8 @@ class Trainer:
         self.cfg = cfg
         self.mesh = mesh if mesh is not None else pmesh.make_ray_mesh()
         self.optimizer = optax.adam(cfg.lr)
-        if cfg.backend == "pallas":
-            self.step_fn = self._make_pallas_step()
-        else:
-            self.step_fn = make_train_step(
-                self.mesh, self.optimizer, cfg.vpu, cfg.march_steps)
+        self.step_fn = make_train_step(
+            self.mesh, self.optimizer, cfg.vpu, cfg.march_steps)
         self.params = init_params(cfg)
         self.opt_state = self.optimizer.init(self.params)
         self.step = 0
@@ -103,39 +81,6 @@ class Trainer:
         from voxel_tracer_tpu.utils.logging import MetricsLogger
         self.metrics = MetricsLogger(cfg.metrics_path) \
             if cfg.metrics_path else None
-
-    def _make_pallas_step(self):
-        from voxel_tracer_tpu.ops.pallas import diffint
-        cfg = self.cfg
-        gz, gy, gx = cfg.grid_size
-        voxels = gz * gy * gx
-        # VMEM budget: 4 f32 tables + 4 gradient tables must fit ~16 MB
-        n_slabs = cfg.n_slabs
-        if n_slabs == 0:
-            n_slabs = 1
-            while voxels // n_slabs > 64 ** 3:
-                n_slabs *= 2
-
-        def loss(params, o, d, c):
-            if n_slabs > 1:
-                out = diffint.render_density_slabs(
-                    params["sigma"], params["albedo"], o, d,
-                    float(cfg.vpu), n_slabs, 8, 1e-4, False)
-            else:
-                out = diffint.render_density_mega(
-                    params["sigma"], params["albedo"], o, d,
-                    float(cfg.vpu), 8, 1e-4, False)
-            return jnp.mean((out["color"] - c) ** 2)
-
-        opt = self.optimizer
-
-        @jax.jit
-        def step(params, opt_state, o, d, c):
-            l, g = jax.value_and_grad(loss)(params, o, d, c)
-            up, opt_state = opt.update(g, opt_state, params)
-            return optax.apply_updates(params, up), opt_state, l
-
-        return step
 
     def maybe_restore(self) -> bool:
         if self.ckpt is None:
@@ -157,16 +102,8 @@ class Trainer:
         n = origins.shape[0]
         rng = np.random.RandomState(0)
         losses = []
-        tile = 1024
-        n_tiles = max(n // tile, 1)
         while self.step < cfg.steps:
-            if cfg.backend == "pallas":
-                # contiguous 1024-ray tiles keep kernel tiles coherent
-                # (dataset rays should be in tile_raster order per view)
-                starts = rng.randint(0, n_tiles, batch // tile) * tile
-                idx = (starts[:, None] + np.arange(tile)[None, :]).ravel()
-            else:
-                idx = rng.randint(0, n, batch)
+            idx = rng.randint(0, n, batch)
             o = jnp.asarray(origins[idx], jnp.float32)
             d = jnp.asarray(dirs[idx], jnp.float32)
             c = jnp.asarray(targets[idx], jnp.float32)

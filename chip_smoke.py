@@ -28,8 +28,9 @@ import time
 
 import numpy as np
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from voxel_tracer_tpu.utils.profiling import TrainShape  # noqa: E402
 
 # Traversal parity bounds (kernel vs wavefront, kernel vs oracle): rays
 # whose hit flag, material, axis or step count differ may make up at most
@@ -47,19 +48,20 @@ class Sizes:
     crates_per_axis: int = 8
     oracle_rays: int = 4096
     frames: int = 3
-    train_grid: int = 128
-    train_views: int = 32
-    train_view_px: int = 64
-    train_rays: int = 131072
+    train: TrainShape = TrainShape()
     train_steps: int = 5
     grad_grid: int = 64
     grad_rays: int = 8192
 
 
 TINY = Sizes(lambert_hw=(24, 32), full_hw=(16, 24), crates_per_axis=2,
-             oracle_rays=48, frames=1, train_grid=16, train_views=4,
-             train_view_px=16, train_rays=512, train_steps=3, grad_grid=16,
-             grad_rays=256)
+             oracle_rays=48, frames=1,
+             train=TrainShape(grid=16, views=4, view_px=16, rays=512),
+             train_steps=3, grad_grid=16, grad_rays=256)
+
+# hit fraction bounds of each main-path frame scene
+HIT_BOUNDS = {"lambert_noise64": (0.2, 0.999),
+              "full_default_scene": (0.05, 0.95)}
 
 
 def log(msg):
@@ -150,18 +152,6 @@ def _oracle_check(label, vol, origins, dirs, got, n, seeds=None):
     compare_hits(label, ref, sub)
 
 
-def noise_volume():
-    from voxel_tracer_tpu.models.volume import VoxelVolume
-
-    return VoxelVolume.noise_filled((64, 64, 64), pos=(0, 0, 0), vpu=20.0)
-
-
-def noise_camera(aspect):
-    from voxel_tracer_tpu.models.camera import Camera
-
-    return Camera.create((2.0, 1.4, -2.4), (0.0, 0.0, 0.0), aspect)
-
-
 def phase_traversal(sizes: Sizes, kernel_impl: str):
     import jax
     import jax.numpy as jnp
@@ -172,8 +162,8 @@ def phase_traversal(sizes: Sizes, kernel_impl: str):
 
     h, w = sizes.lambert_hw
     # 1. primary rays on the dense 64^3 noise volume
-    vol = noise_volume()
-    o, d = rays_for_image(noise_camera(w / h), w, h)
+    vol = profiling.noise_volume()
+    o, d = rays_for_image(profiling.noise_camera(w / h), w, h)
     o_l, d_l = _local_rays(vol, o, d)
     ref, got = _trace_both(kernel_impl, vol, o_l, d_l)
     compare_hits(f"noise64 primary {w}x{h}", ref, got)
@@ -212,11 +202,10 @@ def phase_traversal(sizes: Sizes, kernel_impl: str):
     #    the hit points of one full-material frame
     scene, center = profiling.default_scene()
     hf, wf = sizes.full_hw
-    from voxel_tracer_tpu.ops import dda
     from voxel_tracer_tpu.renderer import RenderConfig, Renderer
-    with dda.traversal("xla"):
-        r = Renderer(RenderConfig(width=wf, height=hf, shading="full",
-                                  max_bounces=3, glass_reflections=2))
+    r = Renderer(RenderConfig(width=wf, height=hf, shading="full",
+                              max_bounces=3, glass_reflections=2,
+                              traversal="xla"))
     cam = profiling.default_camera(center, wf / hf)
     frame = r.render(scene.data(), cam, frame=0)
     o, d = rays_for_image(cam, wf, hf)
@@ -262,40 +251,19 @@ def _time_frames(renderer, scene_data, cam, frames):
     return (time.perf_counter() - t0) / frames
 
 
-def frame_scenes(sizes: Sizes):
-    """The two main-path frame scenes: (name, RenderConfig, SceneData,
-    Camera, hit-fraction bounds)."""
-    from voxel_tracer_tpu.models.scene import Scene
-    from voxel_tracer_tpu.models.skydome import SkyDome
-    from voxel_tracer_tpu.renderer import RenderConfig
-    from voxel_tracer_tpu.utils import profiling
-
-    h, w = sizes.lambert_hw
-    noise = Scene(volumes=[noise_volume()],
-                  skydome=SkyDome.procedural(64, 32)).data()
-    lam = RenderConfig(width=w, height=h, shading="lambert")
-    scene, center = profiling.default_scene()
-    hf, wf = sizes.full_hw
-    full = RenderConfig(width=wf, height=hf, shading="full", max_bounces=3,
-                        glass_reflections=2)
-    return [
-        ("lambert_noise64", lam, noise, noise_camera(w / h), (0.2, 0.999)),
-        ("full_default_scene", full, scene.data(),
-         profiling.default_camera(center, wf / hf), (0.05, 0.95)),
-    ]
-
-
 def phase_frames(sizes: Sizes, kernel_impl: str):
     import jax
-    from voxel_tracer_tpu.ops import dda
     from voxel_tracer_tpu.renderer import Renderer
+    from voxel_tracer_tpu.utils import profiling
 
     results = {}
-    for name, config, sd, cam, (lo, hi) in frame_scenes(sizes):
+    for name, config, sd, cam in profiling.frame_scenes(sizes.lambert_hw,
+                                                        sizes.full_hw):
+        lo, hi = HIT_BOUNDS[name]
         renderers = {}
         for impl in (kernel_impl, "xla"):
-            with dda.traversal(impl):
-                renderers[impl] = Renderer(config)
+            renderers[impl] = Renderer(dataclasses.replace(config,
+                                                           traversal=impl))
             t0 = time.perf_counter()
             out = jax.block_until_ready(renderers[impl].render(sd, cam,
                                                                frame=0))
@@ -320,38 +288,6 @@ def phase_frames(sizes: Sizes, kernel_impl: str):
 
 # -------------------------------------------------------------- training --
 
-def training_problem(grid_n, n_views, px, march_steps, seed=0):
-    """Posed target views of a seeded colored blob, as flat ray arrays in
-    the grid's local frame (unit cube, vpu = grid_n)."""
-    import jax.numpy as jnp
-    from voxel_tracer_tpu.models.camera import Camera, rays_for_image
-    from voxel_tracer_tpu.ops import diff
-
-    rng = np.random.RandomState(seed)
-    z, y, x = np.meshgrid(*[np.arange(grid_n)] * 3, indexing="ij")
-    c = (grid_n - 1) / 2
-    r = np.sqrt((x - c) ** 2 + (y - c) ** 2 + (z - c) ** 2)
-    sigma = np.where(r < grid_n * 0.35, 8.0, 0.0).astype(np.float32)
-    sigma *= rng.uniform(0.5, 1.5, sigma.shape).astype(np.float32)
-    albedo = np.stack([x / grid_n, y / grid_n, 1.0 - x / grid_n],
-                      axis=-1).astype(np.float32)
-    vpu = float(grid_n)
-    pivot = np.full(3, 0.5, np.float32)
-    os_, ds, cs = [], [], []
-    for v in range(n_views):
-        ang = 2 * np.pi * v / n_views
-        el = 0.35 * np.sin(ang * 2 + 1.0)
-        pos = 1.6 * np.array([np.cos(ang) * np.cos(el), np.sin(el),
-                              np.sin(ang) * np.cos(el)])
-        o, d = rays_for_image(Camera.create(pos, (0, 0, 0), 1.0), px, px)
-        out = diff.render_density(jnp.asarray(sigma), jnp.asarray(albedo),
-                                  o + pivot, d, vpu, march_steps)
-        os_.append(np.asarray(o) + pivot)
-        ds.append(np.asarray(d))
-        cs.append(np.asarray(out["color"]))
-    return vpu, np.concatenate(os_), np.concatenate(ds), np.concatenate(cs)
-
-
 def _grad_fn(vpu, march_steps):
     import jax
     import jax.numpy as jnp
@@ -374,24 +310,25 @@ def phase_training(sizes: Sizes):
     import jax
     import jax.numpy as jnp
     from voxel_tracer_tpu.trainer import TrainConfig, Trainer
+    from voxel_tracer_tpu.utils.profiling import training_problem
 
-    g = sizes.train_grid
+    ts = sizes.train
+    g = ts.grid
     steps = 3 * g
-    vpu, o, d, c = training_problem(g, sizes.train_views, sizes.train_view_px,
-                                    steps)
+    vpu, o, d, c = training_problem(g, ts.views, ts.view_px, steps)
     cfg = TrainConfig(grid_size=(g, g, g), vpu=vpu, steps=sizes.train_steps,
-                      rays_per_batch=sizes.train_rays, march_steps=steps)
+                      rays_per_batch=ts.rays, march_steps=steps)
     trainer = Trainer(cfg)
     t0 = time.perf_counter()
     losses = trainer.fit(o, d, c, log_every=1, log_fn=lambda s: None)
-    log(f"  Trainer.fit {g}^3, {sizes.train_views} views, "
-        f"{sizes.train_rays} rays/step: losses {losses} "
+    log(f"  Trainer.fit {g}^3, {ts.views} views, "
+        f"{ts.rays} rays/step: losses {losses} "
         f"({time.perf_counter() - t0:.1f} s with compile)")
     assert np.isfinite(losses).all(), "non-finite loss"
     assert losses[-1] < losses[0], "loss did not fall"
 
     # steady steps/s of the trainer's step function
-    idx = np.random.RandomState(1).randint(0, len(o), sizes.train_rays)
+    idx = np.random.RandomState(1).randint(0, len(o), ts.rays)
     batch = [jnp.asarray(a[idx], jnp.float32) for a in (o, d, c)]
     params, opt_state = trainer.params, trainer.opt_state
     params, opt_state, loss = trainer.step_fn(params, opt_state, *batch)
@@ -402,7 +339,7 @@ def phase_training(sizes: Sizes):
         params, opt_state, loss = trainer.step_fn(params, opt_state, *batch)
     jax.block_until_ready((params, loss))
     sps = n / (time.perf_counter() - t0)
-    log(f"  train steps/s: {sps:.3f} ({sizes.train_rays} rays/step)")
+    log(f"  train steps/s: {sps:.3f} ({ts.rays} rays/step)")
 
     # one step's gradients: default device vs the CPU backend
     gg = sizes.grad_grid
@@ -445,14 +382,15 @@ def phase_devices(sizes: Sizes, n_dev: int):
         make_grid_sharded_train_step, place_grid_params)
     from voxel_tracer_tpu.parallel.mesh import RAYS, make_ray_mesh
     from voxel_tracer_tpu.parallel.sharding import make_train_step
+    from voxel_tracer_tpu.utils.profiling import training_problem
 
     devs = jax.devices()
     assert len(devs) >= n_dev, f"{len(devs)} devices, need {n_dev}"
-    g = sizes.train_grid
+    ts = sizes.train
+    g = ts.grid
     steps = 3 * g
-    vpu, o, d, c = training_problem(g, sizes.train_views, sizes.train_view_px,
-                                    steps)
-    idx = np.random.RandomState(1).randint(0, len(o), sizes.train_rays)
+    vpu, o, d, c = training_problem(g, ts.views, ts.view_px, steps)
+    idx = np.random.RandomState(1).randint(0, len(o), ts.rays)
     batch = [np.asarray(a[idx], np.float32) for a in (o, d, c)]
     rng = np.random.RandomState(5)
     params = {"sigma": rng.uniform(0, 4, (g,) * 3).astype(np.float32),
@@ -501,10 +439,16 @@ def phase_devices(sizes: Sizes, n_dev: int):
             assert leaf.sharding.device_set == set(m.devices.flat), \
                 f"{name}: an output is not on the mesh's devices"
         ref_delta, ref_loss = refs[slabs]
-        errs = {k: rel_l2(np.asarray(new_p[k]) - params[k], ref_delta[k])
-                for k in params}
+        delta = {k: np.asarray(new_p[k]) - params[k] for k in params}
+        errs = {k: rel_l2(delta[k], ref_delta[k]) for k in params}
         log(f"  {n_dev} cards, {name}: loss {loss:.6f} (1 card "
             f"{ref_loss:.6f}), update rel L2 {errs}, step {dt * 1e3:.1f} ms")
+        if slabs > 1:
+            # not a pass/fail bound: how far the slab decomposition itself
+            # is from the plain step
+            plain = {k: rel_l2(delta[k], refs[1][0][k]) for k in params}
+            log(f"    vs the plain one-card step: loss {refs[1][1]:.6f}, "
+                f"update rel L2 {plain}")
         assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss), name
         for k, e in errs.items():
             assert e <= GRAD_RTOL, f"{name}: {k} update rel L2 {e:.2e}"
@@ -518,8 +462,6 @@ def main(argv=None):
                     help="4: run only the four-card mesh phase")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU at tiny sizes (tests only)")
-    ap.add_argument("--phases", default="traversal,frames,training",
-                    help="comma-separated subset of the one-card phases")
     args = ap.parse_args(argv)
 
     from voxel_tracer_tpu.utils import compile_cache
@@ -535,13 +477,13 @@ def main(argv=None):
         log(f"phase devices x{args.devices}")
         phase_devices(sizes, args.devices)
     else:
-        phases = {"traversal": lambda: phase_traversal(sizes, kernel_impl),
-                  "frames": lambda: phase_frames(sizes, kernel_impl),
-                  "training": lambda: phase_training(sizes)}
-        for name in args.phases.split(","):
+        for name, phase in (
+                ("traversal", lambda: phase_traversal(sizes, kernel_impl)),
+                ("frames", lambda: phase_frames(sizes, kernel_impl)),
+                ("training", lambda: phase_training(sizes))):
             log(f"phase {name}")
             t0 = time.perf_counter()
-            phases[name]()
+            phase()
             log(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     if args.cpu:

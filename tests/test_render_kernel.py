@@ -3,6 +3,8 @@ the XLA wavefront: the shading code is shared, so the comparison isolates
 the traversal backend — nearest hit, interior medium marches, scan rays
 and the stochastic shadow rays of a full-material frame."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -10,7 +12,6 @@ import jax.numpy as jnp
 
 from tests.scenes import W, H, material_scene
 from voxel_tracer_tpu.models.camera import Camera
-from voxel_tracer_tpu.ops import dda
 from voxel_tracer_tpu.renderer import RenderConfig, Renderer
 
 FULL = RenderConfig(width=W, height=H, shading="full", max_bounces=3,
@@ -18,8 +19,7 @@ FULL = RenderConfig(width=W, height=H, shading="full", max_bounces=3,
 
 
 def _renderer(config, impl):
-    with dda.traversal(impl):
-        return Renderer(config)
+    return Renderer(dataclasses.replace(config, traversal=impl))
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,7 @@ name.  Traces are written under chiprun_out/traces/.
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import os
 import sys
@@ -27,8 +28,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
-
-import chip_smoke as cs  # noqa: E402
 
 
 def reduce_trace(logdir, top=12):
@@ -95,25 +94,23 @@ def main(argv):
     from voxel_tracer_tpu.utils import compile_cache
 
     compile_cache.enable()
-    import jax
     import jax.numpy as jnp
-    from voxel_tracer_tpu.ops import dda
     from voxel_tracer_tpu.renderer import Renderer
     from voxel_tracer_tpu.trainer import TrainConfig, Trainer
+    from voxel_tracer_tpu.utils import profiling
 
     which = (argv[0] if argv else "train,lambert,full").split(",")
     from voxel_tracer_tpu.utils.device import card_line
 
     print(f"card: {card_line()}", flush=True)
-    sizes = cs.Sizes()
     if "train" in which:
-        g = sizes.train_grid
-        vpu, o, d, c = cs.training_problem(g, sizes.train_views,
-                                           sizes.train_view_px, 3 * g)
+        ts = profiling.TrainShape()
+        g = ts.grid
+        vpu, o, d, c = profiling.training_problem(g, ts.views, ts.view_px,
+                                                  3 * g)
         tr = Trainer(TrainConfig(grid_size=(g, g, g), vpu=vpu,
-                                 rays_per_batch=sizes.train_rays,
-                                 march_steps=3 * g))
-        idx = np.random.RandomState(1).randint(0, len(o), sizes.train_rays)
+                                 rays_per_batch=ts.rays, march_steps=3 * g))
+        idx = np.random.RandomState(1).randint(0, len(o), ts.rays)
         batch = [jnp.asarray(a[idx], jnp.float32) for a in (o, d, c)]
         state = [tr.params, tr.opt_state]
 
@@ -122,15 +119,14 @@ def main(argv):
             return loss
 
         traced("train_3_steps", step, n=3)
-    scenes = {name: rest for name, *rest in cs.frame_scenes(sizes)}
+    scenes = {name: rest for name, *rest in profiling.frame_scenes()}
     for key, name in (("lambert", "lambert_noise64"),
                       ("full", "full_default_scene")):
         if key not in which:
             continue
-        config, sd, cam, _ = scenes[name]
+        config, sd, cam = scenes[name]
         for impl in ("triton", "xla"):
-            with dda.traversal(impl):
-                r = Renderer(config)
+            r = Renderer(dataclasses.replace(config, traversal=impl))
             traced(f"{name}_{impl}", lambda: r.render(sd, cam, frame=0))
     return 0
 

@@ -31,19 +31,21 @@ from voxel_tracer_tpu.ops.math3d import BIG_F32, dot
 
 def render_lambert_surface(palette, scene: SceneData, origins, dirs,
                            sun_light=None, ambient=0.2,
-                           max_candidates: int = 4, max_steps: int = 256):
+                           max_candidates: int = 4, max_steps: int = 256,
+                           impl: str | None = None):
     """Lambert surface render differentiable w.r.t. `palette` (256, 3)
     (and optionally `sun_light` (3,)); scene geometry gives the hits.
 
     Returns dict(color (N, 3), hit (N,), mat (N,)).  The scene's own
     palette is ignored for shading — `palette` is the parameter being
     optimized (single-volume appearance fitting; multi-object scenes can
-    stack palettes and offset by `hit.obj`).
+    stack palettes and offset by `hit.obj`).  ``impl`` picks the traversal
+    (`ops.dda.IMPLS`; None = the backend's default).
     """
     sl = scene.sun_light if sun_light is None else sun_light
 
     hit = composite.intersect_scene(scene, origins, dirs, max_candidates,
-                                    max_steps)
+                                    max_steps, impl=impl)
     t = jax.lax.stop_gradient(hit.t)
     mat = jax.lax.stop_gradient(hit.mat)
     normal = jax.lax.stop_gradient(hit.normal)
@@ -53,7 +55,7 @@ def render_lambert_surface(palette, scene: SceneData, origins, dirs,
     incidence = dot(normal, scene.sun_dir)
     occluded, _ = composite.is_occluded(
         scene, p, jnp.broadcast_to(scene.sun_dir, p.shape), BIG_F32,
-        max_candidates, shadow_seed=None)
+        max_candidates, shadow_seed=None, impl=impl)
     vis = jax.lax.stop_gradient(
         ((incidence > 0.0) & ~occluded).astype(jnp.float32))
 

@@ -3,15 +3,16 @@
 The XLA form of `ops.dda.intersect_volume_local` is a wavefront: one
 `lax.while_loop` over ALL rays that reads and rewrites every ray's whole
 state (about 136 B) on each iteration and runs until the slowest ray of
-the frame is done.  Here each program owns a block of ``block`` rays, keeps
+the frame is done.  Here each program owns a block of `BLOCK` rays, keeps
 their state in registers, and loops only until its own rays are done.  Its
 only memory traffic inside the loop is two byte gathers per ray and step
 (brick occupancy, then material), which stay in L2 for grids up to ~40 MB.
 
-The state machine is the one of `ops.dda` step for step, with the same
-shared `MAX_STEPS` budget and comparison order, so results agree with the
-wavefront except where the compiler contracts a multiply-add differently
-and a crossing-t tie flips (bounds in `chip_smoke.py`).
+The loop is `ops.dda.march`, the same function the wavefront runs, with
+the tables read through Pallas refs, so results agree with the wavefront
+except where the compiler contracts a multiply-add differently and a
+crossing-t tie flips (bounds in `chip_smoke.py`).  128 rays and 4 warps
+per program tied for the fastest block shape tried on the H100 (PERF.md).
 
 The route is named (``backend="triton"``) because the default Pallas GPU
 route in this JAX is Mosaic GPU.  The kernel carries no gradient;
@@ -27,251 +28,34 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import triton as plt
 
-from voxel_tracer_tpu.ops.math3d import BIG_F32
+from voxel_tracer_tpu.ops import dda
 
-BRICK = 8
 BLOCK = 128        # rays per program (a power of two)
 NUM_WARPS = 4
-
-# Ray state machine modes (same values as ops.dda)
-_MISS, _BRICK, _FINE, _HIT = 0, 1, 2, 3
-
-
-def _aw_step(cell, tm, step, delta, lim):
-    """One Amanatides-Woo step on per-component (B,) arrays, with the
-    reference comparison order (vv.cpp:176-202)."""
-    tx, ty, tz = tm
-    use_x = (tx < ty) & (tx < tz)
-    use_y = (~(tx < ty)) & (ty < tz)
-    axis = jnp.where(use_x, 0, jnp.where(use_y, 1, 2))
-    sel = [axis == k for k in range(3)]
-    cell = [jnp.where(sel[k], cell[k] + step[k], cell[k]) for k in range(3)]
-    t = jnp.where(sel[0], tx, jnp.where(sel[1], ty, tz))
-    tm = [jnp.where(sel[k], tm[k] + delta[k], tm[k]) for k in range(3)]
-    moved = jnp.where(sel[0], cell[0], jnp.where(sel[1], cell[1], cell[2]))
-    bound = jnp.where(sel[0], lim[0], jnp.where(sel[1], lim[1], lim[2]))
-    oob = (moved < 0) | (moved >= bound)
-    return cell, tm, t, axis, oob
-
-
-def _gather(ref, cell, dims, base):
-    """ref[base + z*Y*X + y*X + x] with out-of-range cells reading 0."""
-    gx, gy, gz = dims
-    x, y, z = cell
-    inb = (x >= 0) & (x < gx) & (y >= 0) & (y < gy) & (z >= 0) & (z < gz)
-    flat = (jnp.clip(z, 0, gz - 1) * (gy * gx) + jnp.clip(y, 0, gy - 1) * gx
-            + jnp.clip(x, 0, gx - 1))
-    if base is not None:
-        flat = flat + base
-    vals = ref[flat].astype(jnp.int32)
-    return jnp.where(inb, vals, 0)
-
-
-def _hash_shadow(seed, cell):
-    """`ops.dda.hash_shadow` on per-component cells (same uint32 math)."""
-    x, y, z = (c.astype(jnp.uint32) for c in cell)
-    h = seed ^ (x * jnp.uint32(0x9E3779B1)) ^ (y * jnp.uint32(0x85EBCA77)) \
-        ^ (z * jnp.uint32(0xC2B2AE3D))
-    h = h ^ (h >> 16)
-    h = h * jnp.uint32(0x7FEB352D)
-    h = h ^ (h >> 15)
-    h = h * jnp.uint32(0x846CA68B)
-    h = h ^ (h >> 16)
-    return h.astype(jnp.float32) * jnp.float32(1.0 / 4294967296.0)
 
 
 def _kernel(*refs, vdims, bdims, max_steps, has_oid, has_medium, has_ignore,
             shadow):
-    it_refs = iter(refs)
-    o = [next(it_refs)[...] for _ in range(3)]
-    d = [next(it_refs)[...] for _ in range(3)]
-    vpu = next(it_refs)[...]
-    tmin = next(it_refs)[...]
-    tmax = next(it_refs)[...]
-    entry_axis = next(it_refs)[...]
-    mode0 = next(it_refs)[...]
-    oid = next(it_refs)[...] if has_oid else None
-    medium = next(it_refs)[...] if has_medium else None
-    ignore = next(it_refs)[...] if has_ignore else None
-    seed = next(it_refs)[...] if shadow else None
-    grid_ref, occ_ref = next(it_refs), next(it_refs)
-    t_out, mat_out, axis_out, steps_out = (next(it_refs) for _ in range(4))
-
-    vbase = bbase = None
-    if has_oid:
-        vbase = oid * (vdims[0] * vdims[1] * vdims[2])
-        bbase = oid * (bdims[0] * bdims[1] * bdims[2])
-    medium_on = None if medium is None else medium > 0
-
-    # per-ray invariants (ops.dda.intersect_volume_local setup)
-    bpu = vpu / BRICK
-    rbpu = 1.0 / bpu
-    stepf = [jnp.where(jnp.signbit(dk), -1.0, 1.0) for dk in d]
-    stepi = [s.astype(jnp.int32) for s in stepf]
-    rdir = [1.0 / dk for dk in d]
-    delta = [jnp.minimum(jnp.abs(r), BIG_F32) for r in rdir]
-
-    def cross_t(cell, entry, k):
-        tk = ((cell.astype(jnp.float32) - entry) + jnp.maximum(stepf[k], 0.0)) \
-            * rdir[k]
-        tk = jnp.where(jnp.isnan(tk), BIG_F32, tk)
-        return jnp.minimum(tk, BIG_F32)
-
-    bcell, btmax = [], []
-    for k in range(3):
-        entry = (o[k] + d[k] * tmin) * bpu
-        c = jnp.clip(jnp.floor(entry).astype(jnp.int32), 0, bdims[k] - 1)
-        bcell.append(c)
-        btmax.append(cross_t(c, entry, k))
-
-    zf = jnp.zeros_like(tmin)
-    zi = jnp.zeros_like(mode0)
-    zb = zi != 0
-    hit_t0 = jnp.where(mode0 == _HIT, 0.0, BIG_F32)
-    state = (mode0, *bcell, *btmax, zf, zi, zi, zi, zf, zf, zf, zf, zf,
-             entry_axis, zi, hit_t0, zi, zb, zb, jnp.int32(0))
-
-    def active(mode):
-        return (mode == _BRICK) | (mode == _FINE)
-
-    def cond(s):
-        mode, steps, it = s[0], s[17], s[-1]
-        live = (active(mode) & (steps < max_steps)).astype(jnp.int32)
-        return (jnp.max(live) > 0) & (it < 2 * max_steps)
-
-    def body(s):
-        (mode, bx, by, bz, btx, bty, btz, bt, fx, fy, fz, ftx, fty, ftz, ft,
-         b_entry, axis, steps, hit_t, hit_mat, hit_entry, exited, it) = s
-        bc, btm = [bx, by, bz], [btx, bty, btz]
-        fc, ftm = [fx, fy, fz], [ftx, fty, ftz]
-        in_budget = steps < max_steps
-        is_brick = (mode == _BRICK) & in_budget
-        is_fine = (mode == _FINE) & in_budget
-        exhausted = active(mode) & ~in_budget
-        new_mode = jnp.where(exhausted, _MISS, mode)
-        new_hit_t, new_hit_mat, new_hit_entry = hit_t, hit_mat, hit_entry
-        if has_medium:
-            exh_med = exhausted & medium_on
-            new_mode = jnp.where(exh_med, _HIT, new_mode)
-            new_hit_t = jnp.where(exh_med, tmax, new_hit_t)
-            new_hit_mat = jnp.where(exh_med, 0, new_hit_mat)
-
-        # brick phase: occupancy test
-        occ = _gather(occ_ref, bc, bdims, bbase) > 0
-        enter_fine = is_brick & occ
-        brick_step = is_brick & ~occ
-        if has_medium:
-            med_brick_exit = brick_step & medium_on
-            brick_step = brick_step & ~medium_on
-
-        # fine setup for rays entering an occupied brick (vv.cpp:237-251)
-        brick_entry_t = tmin + bt * rbpu
-        fc_new, ftm_new = [], []
-        for k in range(3):
-            bmin = bc[k].astype(jnp.float32) * rbpu
-            fentry = (o[k] + d[k] * brick_entry_t - bmin) * vpu
-            c = jnp.clip(jnp.floor(fentry).astype(jnp.int32), 0, BRICK - 1)
-            fc_new.append(c)
-            ftm_new.append(cross_t(c, fentry, k))
-
-        # fine phase: voxel test
-        vc = [bc[k] * BRICK + fc[k] for k in range(3)]
-        voxel = _gather(grid_ref, vc, vdims, vbase)
-        solid = voxel != 0
-        if shadow:
-            rnd = _hash_shadow(seed, vc)
-            hit_vox = solid & ((voxel > 16) | (rnd > 0.85))
-        elif has_ignore:
-            hit_vox = solid & (exited | (voxel != ignore))
-        else:
-            hit_vox = solid
-        if has_medium:
-            hit_vox = jnp.where(medium_on, voxel != medium, hit_vox)
-        fine_hit = is_fine & hit_vox
-
-        nfc, nftm, nft, nfaxis, f_oob = _aw_step(
-            fc, ftm, stepi, delta, (BRICK, BRICK, BRICK))
-        fine_step = is_fine & ~fine_hit
-        fine_exit = fine_step & f_oob
-        fine_move = fine_step & ~fine_exit
-
-        do_bstep = brick_step | fine_exit
-        nbc, nbtm, nbt, nbaxis, b_oob = _aw_step(bc, btm, stepi, delta, bdims)
-
-        # merge
-        new_mode = jnp.where(fine_hit, _HIT, new_mode)
-        new_mode = jnp.where(do_bstep & b_oob, _MISS, new_mode)
-        new_mode = jnp.where(enter_fine, _FINE, new_mode)
-        new_mode = jnp.where(fine_exit & ~b_oob, _BRICK, new_mode)
-        if has_medium:
-            med_grid_exit = do_bstep & b_oob & medium_on
-            new_mode = jnp.where(med_brick_exit | med_grid_exit, _HIT,
-                                 new_mode)
-
-        bc = [jnp.where(do_bstep, nbc[k], bc[k]) for k in range(3)]
-        btm = [jnp.where(do_bstep, nbtm[k], btm[k]) for k in range(3)]
-        bt = jnp.where(do_bstep, nbt, bt)
-        fc = [jnp.where(enter_fine, fc_new[k],
-                        jnp.where(fine_move, nfc[k], fc[k])) for k in range(3)]
-        ftm = [jnp.where(enter_fine, ftm_new[k],
-                         jnp.where(fine_move, nftm[k], ftm[k]))
-               for k in range(3)]
-        new_ft = jnp.where(enter_fine, 0.0, jnp.where(fine_move, nft, ft))
-        new_b_entry = jnp.where(enter_fine, brick_entry_t, b_entry)
-        new_axis = jnp.where(do_bstep, nbaxis,
-                             jnp.where(fine_move, nfaxis, axis))
-        new_steps = steps + (do_bstep | fine_move).astype(jnp.int32)
-
-        new_hit_t = jnp.where(fine_hit, b_entry + ft / vpu, new_hit_t)
-        new_hit_mat = jnp.where(fine_hit, voxel, new_hit_mat)
-        new_hit_entry = jnp.where(fine_hit, steps == 0, new_hit_entry)
-
-        new_exited = exited
-        if has_ignore:
-            saw_air = (is_fine & ~solid) | brick_step
-            new_exited = exited | (saw_air & (ignore > 0))
-        if has_medium:
-            new_hit_t = jnp.where(med_brick_exit, brick_entry_t, new_hit_t)
-            new_hit_t = jnp.where(med_grid_exit, tmax, new_hit_t)
-            new_hit_mat = jnp.where(med_brick_exit | med_grid_exit, 0,
-                                    new_hit_mat)
-            new_hit_entry = jnp.where(med_brick_exit, steps == 0,
-                                      new_hit_entry)
-            # exhaustion reads the pre-step brick crossings (ops.dda)
-            ladder = jnp.where((btx < bty) & (btx < btz), 0,
-                               jnp.where(~(btx < bty) & (bty < btz), 1, 2))
-            new_axis = jnp.where(exh_med, ladder, new_axis)
-
-        return (new_mode, *bc, *btm, bt, *fc, *ftm, new_ft, new_b_entry, new_axis,
-                new_steps, new_hit_t, new_hit_mat, new_hit_entry, new_exited,
-                it + 1)
-
-    s = jax.lax.while_loop(cond, body, state)
-    mode, btx, bty, btz = s[0], s[4], s[5], s[6]
-    axis, steps, hit_t, hit_mat, hit_entry = s[16], s[17], s[18], s[19], s[20]
-    # rays the loop left active with an exhausted budget (ops.dda
-    # `_finish_exhausted`): a miss, or the medium exit at the slab tmax
-    if has_medium:
-        exh_med = active(mode) & (steps >= max_steps) & medium_on
-        ladder = jnp.where((btx < bty) & (btx < btz), 0,
-                           jnp.where(~(btx < bty) & (bty < btz), 1, 2))
-        mode = jnp.where(exh_med, _HIT, mode)
-        hit_t = jnp.where(exh_med, tmax, hit_t)
-        hit_mat = jnp.where(exh_med, 0, hit_mat)
-        axis = jnp.where(exh_med, ladder, axis)
-    hit = mode == _HIT
-    t_out[...] = jnp.where(hit, hit_t, BIG_F32)
-    mat_out[...] = jnp.where(hit, hit_mat, 0)
-    axis_out[...] = jnp.where(hit_entry, entry_axis, axis)
-    steps_out[...] = steps
+    it = iter(refs)
+    o = tuple(next(it)[...] for _ in range(3))
+    d = tuple(next(it)[...] for _ in range(3))
+    vpu, tmin, tmax, entry_axis, mode0 = (next(it)[...] for _ in range(5))
+    oid, medium, ignore, seed = (next(it)[...] if on else None for on in
+                                 (has_oid, has_medium, has_ignore, shadow))
+    grid_ref, occ_ref = next(it), next(it)
+    res = dda.march(o, d, vpu, tmin, tmax, entry_axis, mode0, grid_ref,
+                    occ_ref, vdims, bdims, max_steps=max_steps, oid=oid,
+                    medium=medium, ignore=ignore, shadow_seed=seed,
+                    shadow=shadow)
+    for out_ref, value in zip(it, res):
+        out_ref[...] = value
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "max_steps", "shadow", "block", "num_warps", "interpret"))
+@functools.partial(jax.jit, static_argnames=("max_steps", "shadow",
+                                             "interpret"))
 def trace(grid, brick_occ, origin_l, dir_l, vpu, tmin, tmax, entry_axis,
           mode0, oid=None, medium=None, ignore=None, shadow_seed=None, *,
-          max_steps: int, shadow: bool = False, block: int = BLOCK,
-          num_warps: int = NUM_WARPS, interpret: bool = False):
+          max_steps: int, shadow: bool = False, interpret: bool = False):
     """Run the traversal kernel over N rays.
 
     The slab test and the initial mode come from the caller
@@ -279,9 +63,8 @@ def trace(grid, brick_occ, origin_l, dir_l, vpu, tmin, tmax, entry_axis,
     ``oid``/``medium``/``ignore``/``shadow_seed`` inputs.  Returns
     (t, mat, axis, steps), each (N,).
     """
-    assert block & (block - 1) == 0, "block must be a power of two"
     n = origin_l.shape[0]
-    n_pad = max(-(-n // block), 1) * block
+    n_pad = max(-(-n // BLOCK), 1) * BLOCK
     gz, gy, gx = grid.shape[-3:]
     bz, by, bx = brick_occ.shape[-3:]
 
@@ -294,7 +77,7 @@ def trace(grid, brick_occ, origin_l, dir_l, vpu, tmin, tmax, entry_axis,
     ins += [ray(dir_l[:, k], jnp.float32, 1.0) for k in range(3)]
     ins += [ray(vpu, jnp.float32, 1.0), ray(tmin, jnp.float32),
             ray(tmax, jnp.float32), ray(entry_axis, jnp.int32),
-            ray(mode0, jnp.int32, _MISS)]
+            ray(mode0, jnp.int32, dda._MISS)]
     for opt, dt in ((oid, jnp.int32), (medium, jnp.int32),
                     (ignore, jnp.int32)):
         if opt is not None:
@@ -306,7 +89,7 @@ def trace(grid, brick_occ, origin_l, dir_l, vpu, tmin, tmax, entry_axis,
     ins.append(grid.astype(jnp.uint8).reshape(-1))
     ins.append((brick_occ > 0).astype(jnp.uint8).reshape(-1))
 
-    ray_spec = pl.BlockSpec((block,), lambda i: (i,))
+    ray_spec = pl.BlockSpec((BLOCK,), lambda i: (i,))
     in_specs = [ray_spec] * n_ray_ins + [
         pl.BlockSpec((t.shape[0],), lambda i: (0,)) for t in ins[n_ray_ins:]]
     out_shape = [jax.ShapeDtypeStruct((n_pad,), jnp.float32)] + [
@@ -318,11 +101,12 @@ def trace(grid, brick_occ, origin_l, dir_l, vpu, tmin, tmax, entry_axis,
     t, mat, axis, steps = pl.pallas_call(
         kernel,
         out_shape=out_shape,
-        grid=(n_pad // block,),
+        grid=(n_pad // BLOCK,),
         in_specs=in_specs,
         out_specs=[ray_spec] * 4,
         backend="triton",
-        compiler_params=plt.CompilerParams(num_warps=num_warps, num_stages=1),
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
         interpret=interpret,
         name="dda_traverse",
     )(*ins)

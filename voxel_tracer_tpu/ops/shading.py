@@ -29,7 +29,7 @@ def hit_point(origins, dirs, t, normal):
 
 
 def sun_light(scene: SceneData, p, n, jitter3=None, max_candidates=4,
-              shadow_seed=None):
+              shadow_seed=None, impl=None):
     """Sun contribution with shadow ray (materials.cpp:226-244).  With
     ``shadow_seed`` the shadow ray uses stochastic glass/mirror
     pass-through (vv.cpp:314-327)."""
@@ -42,7 +42,8 @@ def sun_light(scene: SceneData, p, n, jitter3=None, max_candidates=4,
     incidence = dot(n, sun_dir)
     lit = incidence > 0.0
     occluded, shadow_hit = composite.is_occluded(
-        scene, p, sun_dir, BIG_F32, max_candidates, shadow_seed=shadow_seed)
+        scene, p, sun_dir, BIG_F32, max_candidates, shadow_seed=shadow_seed,
+        impl=impl)
     vis = lit & ~occluded
     return jnp.where(vis[:, None], scene.sun_light * incidence[:, None], 0.0)
 
@@ -71,13 +72,13 @@ def cos_diffuse_reflect(n, r1, r2):
 
 
 def ambient_light(scene: SceneData, p, n, r2pair, max_candidates=4,
-                  shadow_seed=None):
+                  shadow_seed=None, impl=None):
     """Ambient sky term: cosine-weighted ray, occlusion within 1 unit,
     sky sample / pdf, clamped (materials.cpp:249-269)."""
     amb_dir = cos_diffuse_reflect(n, r2pair[..., 0], r2pair[..., 1])
     occluded, _ = composite.is_occluded(scene, p, amb_dir, 1.0,
                                         max_candidates,
-                                        shadow_seed=shadow_seed)
+                                        shadow_seed=shadow_seed, impl=impl)
     pdf = jnp.maximum(dot(amb_dir, n) * INVPI, 1e-6)
     sky = sample_sky(scene.sky, amb_dir) * 0.25
     contrib = clamp_color(sky / pdf[:, None], 8.0)
@@ -85,7 +86,7 @@ def ambient_light(scene: SceneData, p, n, r2pair, max_candidates=4,
 
 
 def sphere_lights(scene: SceneData, p, n, sample3, max_candidates=4,
-                  shadow_seed=None, live=None):
+                  shadow_seed=None, live=None, impl=None):
     """Monte-Carlo spherical area lights (sphere-light.cpp:8-37).
 
     ``live`` (optional bool mask) parks dead rows' shadow rays: the
@@ -115,7 +116,7 @@ def sphere_lights(scene: SceneData, p, n, sample3, max_candidates=4,
                             jnp.asarray([0.0, 0.0, 1.0], jnp.float32))
         occluded, _ = composite.is_occluded(
             scene, so, sdd,
-            dist - 0.01, max_candidates, shadow_seed=shadow_seed)
+            dist - 0.01, max_candidates, shadow_seed=shadow_seed, impl=impl)
         pdf = FOURPI * diameter
         intensity = lights.power[li] / (FOURPI * jnp.maximum(dist_sqr, 1e-12))
         contrib = lights.color[li] * (intensity * incidence * pdf)[:, None]
@@ -131,13 +132,16 @@ def diffuse_irradiance(scene, p, n, noise3, noise2, config, shadow_seed=None,
     salt = None if shadow_seed is None else shadow_seed
     if scene.lights.origin.shape[0] > 0:
         irr = irr + sphere_lights(scene, p, n, noise3, config.max_candidates,
-                                  shadow_seed=salt, live=live)
+                                  shadow_seed=salt, live=live,
+                                  impl=config.traversal)
     irr = irr + sun_light(scene, p, n, noise3, config.max_candidates,
                           shadow_seed=None if salt is None
-                          else salt ^ jnp.uint32(0xA511E9B3))
+                          else salt ^ jnp.uint32(0xA511E9B3),
+                          impl=config.traversal)
     irr = irr + ambient_light(scene, p, n, noise2, config.max_candidates,
                               shadow_seed=None if salt is None
-                              else salt ^ jnp.uint32(0x63D83595))
+                              else salt ^ jnp.uint32(0x63D83595),
+                              impl=config.traversal)
     return irr
 
 
@@ -145,7 +149,8 @@ def lambert_irradiance(scene: SceneData, origins, dirs, hit, config):
     """Deterministic Lambertian shading: sun + shadow ray + flat ambient.
     (config-2 benchmark shading; a simplification of diffuse_light)."""
     p = hit_point(origins, dirs, hit.t, hit.normal)
-    sun = sun_light(scene, p, hit.normal, None, config.max_candidates)
+    sun = sun_light(scene, p, hit.normal, None, config.max_candidates,
+                    impl=config.traversal)
     return sun + config.ambient
 
 
@@ -223,7 +228,8 @@ def eval_glass_wavefront(scene, cur_o, cur_d, cur_hit, is_glass, config):
 
     for i in range(config.glass_reflections):
         i_hit = composite.march_interior(
-            scene, cur_hit.obj, i_o, i_d, g_medium, config.max_steps)
+            scene, cur_hit.obj, i_o, i_d, g_medium, config.max_steps,
+            impl=config.traversal)
         exit_p = i_o + i_d * i_hit.t[:, None]
         absorb_t = absorb_t + jnp.where(g_live, i_hit.t, 0.0)
         absorb = jnp.exp(absorption * 2.0 * absorb_t[:, None])
@@ -244,7 +250,7 @@ def eval_glass_wavefront(scene, cur_o, cur_d, cur_hit, is_glass, config):
             later = g_live & do_refract & ~first
             s_hit = composite.intersect_scene(
                 scene, scan_o, scan_d, config.max_candidates,
-                config.max_steps, ignore=g_medium)
+                config.max_steps, ignore=g_medium, impl=config.traversal)
             s_miss = s_hit.t >= BIG_F32
             s_sky = sample_sky(scene.sky, scan_d)
             s_sun = jnp.maximum(dot(s_hit.normal, scene.sun_dir), 0.0)
@@ -472,7 +478,7 @@ def _shade_full_body(scene, origins, dirs, hit, frame, config, ray_idx):
                 d_p = jnp.where(lv[:, None], d_g, unit_z)
                 h = composite.intersect_scene(
                     scene, o_p, d_p, config.max_candidates,
-                    config.max_steps, ignore=ign_g)
+                    config.max_steps, ignore=ign_g, impl=config.traversal)
                 sky_g = sample_sky(scene.sky, d_p)
                 m_g = (lv & (h.t >= BIG_F32))[:, None]
                 return (h.t, h.mat, h.normal, h.albedo, h.steps, h.obj,
@@ -499,7 +505,7 @@ def _shade_full_body(scene, origins, dirs, hit, frame, config, ray_idx):
         else:
             cur_hit = composite.intersect_scene(
                 scene, cur_o, cur_d, config.max_candidates,
-                config.max_steps, ignore=ign)
+                config.max_steps, ignore=ign, impl=config.traversal)
             sky = sample_sky(scene.sky, cur_d)
             missed = cur_hit.t >= BIG_F32
             albedo_out = albedo_out + jnp.where(

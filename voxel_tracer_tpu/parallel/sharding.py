@@ -1,7 +1,9 @@
-"""Sharded render and train steps (`shard_map` over the ray axis).
+"""Sharded trace and train steps (`shard_map` over the ray axis).
 
-Forward rendering is embarrassingly parallel over rays: each chip traces its
+Forward tracing is embarrassingly parallel over rays: each device traces its
 ray shard against a replicated scene — zero collectives in the hot loop.
+The traversal runs inside `shard_map`, so the Triton kernel (a custom call
+the SPMD partitioner cannot split) only ever sees its local shard.
 Training all-reduces voxel-parameter gradients with `psum` over the mesh
 (NVLink between GPUs), the analog of the reference's missing gradient path (SURVEY.md §2.4).
 """
@@ -21,40 +23,9 @@ with warnings.catch_warnings():
     warnings.simplefilter("ignore", DeprecationWarning)
     from jax.experimental.shard_map import shard_map
 
-from voxel_tracer_tpu.models.camera import Camera, rays_for_image
-from voxel_tracer_tpu.models.scene import SceneData
 from voxel_tracer_tpu.parallel.mesh import RAYS
 from voxel_tracer_tpu.ops import composite, diff
 from voxel_tracer_tpu.renderer import RenderConfig
-
-
-def sharded_render(mesh: Mesh, config: RenderConfig):
-    """Build a jitted, ray-sharded full-frame render function.
-
-    Ray-gen runs replicated (it is trivially cheap), then a sharding
-    constraint pins the ray wavefront to the `rays` mesh axis so GSPMD
-    partitions every downstream traversal/shading op over devices; the
-    scene pytree stays replicated (zero collectives in the forward pass).
-    Returns fn(scene, camera, frame) -> aov dict.
-    """
-    from jax.sharding import NamedSharding
-    from voxel_tracer_tpu.renderer import render_rays
-
-    n_rays = config.width * config.height
-    n_dev = mesh.devices.size
-    assert n_rays % n_dev == 0, (
-        f"{config.width}x{config.height} rays must divide over {n_dev} devices")
-
-    ray_sh = NamedSharding(mesh, P(RAYS))
-
-    @jax.jit
-    def render(scene, camera, frame):
-        origins, dirs = rays_for_image(camera, config.width, config.height)
-        origins = jax.lax.with_sharding_constraint(origins, ray_sh)
-        dirs = jax.lax.with_sharding_constraint(dirs, ray_sh)
-        return render_rays(scene, origins, dirs, frame, config=config)
-
-    return render
 
 
 def shard_rays(mesh: Mesh, origins, dirs):
@@ -78,7 +49,8 @@ def make_sharded_trace(mesh: Mesh, config: RenderConfig):
     )
     def trace_shard(scene, o, d):
         return composite.intersect_scene(
-            scene, o, d, config.max_candidates, config.max_steps)
+            scene, o, d, config.max_candidates, config.max_steps,
+            impl=config.traversal)
 
     return jax.jit(trace_shard)
 

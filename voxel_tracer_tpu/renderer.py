@@ -18,7 +18,7 @@ import jax.numpy as jnp
 from voxel_tracer_tpu.models.camera import Camera, rays_for_image
 from voxel_tracer_tpu.models.scene import SceneData
 from voxel_tracer_tpu.models.skydome import sample_sky
-from voxel_tracer_tpu.ops import composite, dda, tonemap
+from voxel_tracer_tpu.ops import composite, tonemap
 from voxel_tracer_tpu.ops.math3d import BIG_F32
 
 
@@ -43,6 +43,8 @@ class RenderConfig:
                                  # each heavy stage on a dense gather of
                                  # its live subset (ops/compact.py)
     compact_fracs: tuple = (1 / 64, 1 / 16, 1 / 2)  # capacity buckets
+    traversal: str | None = None  # ops.dda.IMPLS; None = the Triton
+                                  # kernel on a GPU, XLA elsewhere
 
     @property
     def aspect(self) -> float:
@@ -56,20 +58,15 @@ class Renderer:
     accumulator + previous-frame view pyramid across `render` calls (the
     ping-pong accu/prev_frame buffers and `camera.prev_pyramid` of the
     reference, renderer.cpp:240-244, camera.cpp:3-16) and blends 95%
-    history with depth rejection (renderer.cpp:273-329).
-
-    The traversal implementation (`ops.dda.default_impl`) is fixed when the
-    renderer is constructed, so a renderer made inside a
-    ``dda.traversal(...)`` block keeps that choice for every frame."""
+    history with depth rejection (renderer.cpp:273-329)."""
 
     def __init__(self, config: RenderConfig = RenderConfig()):
         self.config = config
         self.frame = 0
-        self.impl = dda.default_impl()
         self._accu = None          # (H, W, 4) irradiance + depth history
         self._prev_planes = None   # (4, 4) previous-frame pyramid planes
         self._render = jax.jit(
-            functools.partial(_render_impl, config=config, impl=self.impl))
+            functools.partial(_render_impl, config=config))
 
     def camera(self, pos, target) -> Camera:
         return Camera.create(pos, target, self.config.aspect)
@@ -106,14 +103,12 @@ class Renderer:
 
 
 def _render_impl(scene: SceneData, camera: Camera, frame, prev_accu=None,
-                 prev_planes=None, depth_delta=0.0, *, config: RenderConfig,
-                 impl: str | None = None):
+                 prev_planes=None, depth_delta=0.0, *, config: RenderConfig):
     w, h = config.width, config.height
-    with dda.traversal(impl or dda.default_impl()):
-        origins, dirs = rays_for_image(camera, w, h)
-        return render_rays(scene, origins, dirs, frame, config=config,
-                           prev_accu=prev_accu, prev_planes=prev_planes,
-                           depth_delta=depth_delta)
+    origins, dirs = rays_for_image(camera, w, h)
+    return render_rays(scene, origins, dirs, frame, config=config,
+                       prev_accu=prev_accu, prev_planes=prev_planes,
+                       depth_delta=depth_delta)
 
 
 def render_rays(scene: SceneData, origins, dirs, frame, *,
@@ -125,7 +120,8 @@ def render_rays(scene: SceneData, origins, dirs, frame, *,
     w, h = config.width, config.height
 
     hit = composite.intersect_scene(
-        scene, origins, dirs, config.max_candidates, config.max_steps)
+        scene, origins, dirs, config.max_candidates, config.max_steps,
+        impl=config.traversal)
     missed = hit.t >= BIG_F32
 
     sky = sample_sky(scene.sky, dirs)
